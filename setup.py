@@ -21,7 +21,10 @@ setup(
     long_description=read("README.md"),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests",)),
-    package_data={"centernet_tpu": ["native/*.cc"]},
+    package_data={
+        "centernet_tpu": ["native/*.cc"],
+        "centernet_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
