@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dcn import DeformConvBNAct
+from ..ops.modules import BatchNorm2d, Conv2d
 from .layers import BilinearConvTranspose, ConvBNAct
 
 
@@ -28,12 +29,12 @@ class DlaBasicBlock(nn.Module):
     def __init__(self, in_channels: int, planes: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, planes, 3, stride=stride,
-                               padding=1, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False,
-                               dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv1 = Conv2d(in_channels, planes, 3, stride=stride,
+                            padding=1, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = Conv2d(planes, planes, 3, padding=1, bias=False,
+                            dtype=dtype)
+        self.bn2 = BatchNorm2d(planes)
 
     def forward(self, x, residual=None):
         if residual is None:
@@ -49,9 +50,9 @@ class Root(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  residual: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False,
-                              dtype=dtype)
-        self.bn = nn.BatchNorm2d(out_channels)
+        self.conv = Conv2d(in_channels, out_channels, 1, bias=False,
+                           dtype=dtype)
+        self.bn = BatchNorm2d(out_channels)
         self.residual = residual
 
     def forward(self, children: Sequence[torch.Tensor]):
@@ -64,7 +65,9 @@ class Root(nn.Module):
 class Tree(nn.Module):
     """Recursive aggregation tree. As in the JAX module, a residual passed in
     by the parent is used as it is; ``project`` then only feeds trees that
-    get none (its weights stay for checkpoint parity)."""
+    get none. The JAX module runs ``project`` all the same, so in train mode
+    it runs here too: its BatchNorm statistics advance, its output is
+    dropped and its parameters get no gradient."""
 
     def __init__(self, levels: int, in_channels: int, out_channels: int,
                  stride: int = 1, level_root: bool = False, root_dim: int = 0,
@@ -95,18 +98,20 @@ class Tree(nn.Module):
         self.project = None
         if in_channels != out_channels:
             self.project = nn.Sequential(
-                nn.Conv2d(in_channels, out_channels, 1, bias=False,
-                          dtype=dtype),
-                nn.BatchNorm2d(out_channels),
+                Conv2d(in_channels, out_channels, 1, bias=False,
+                       dtype=dtype),
+                BatchNorm2d(out_channels),
             )
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
         bottom = (F.max_pool2d(x, self.stride, self.stride)
                   if self.stride > 1 else x)
+        proj = bottom
+        if self.project is not None and (residual is None or self.training):
+            proj = self.project(bottom)
         if residual is None:
-            residual = self.project(bottom) if self.project is not None \
-                else bottom
+            residual = proj
         if self.level_root:
             children.append(bottom)
         x1 = self.tree1(x, residual)

@@ -14,6 +14,7 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from ..ops.modules import Conv2d
 from .layers import lecun_normal_
 
 
@@ -23,10 +24,10 @@ class HeadConv(nn.Module):
         super().__init__()
         self.is_heatmap = is_heatmap
         self.fc = nn.Sequential(
-            nn.Conv2d(in_channels, head_conv, 3, padding=1, bias=True,
-                      dtype=dtype),
+            Conv2d(in_channels, head_conv, 3, padding=1, bias=True,
+                   dtype=dtype),
             nn.ReLU(inplace=True),
-            nn.Conv2d(head_conv, out_channels, 1, bias=True, dtype=dtype),
+            Conv2d(head_conv, out_channels, 1, bias=True, dtype=dtype),
         )
 
     @torch.no_grad()

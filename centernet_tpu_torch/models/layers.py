@@ -1,10 +1,9 @@
 """Shared building blocks, PyTorch port of ``centernet_tpu/models/layers.py``.
 
-Tensors are NCHW in ``torch.channels_last`` memory. Convolutions hold their
-weights in the compute dtype; BatchNorm keeps f32 parameters and statistics
-and returns the compute dtype (its affine math runs in f32), as the JAX
-``ConvBNAct`` does. Modules are built for inference: callers put them in
-``eval()`` mode.
+Tensors are NCHW in ``torch.channels_last`` memory. Convolutions hold f32
+parameters and compute in the model's dtype; BatchNorm keeps f32 parameters
+and statistics and returns the compute dtype (its affine math runs in f32),
+as the JAX ``ConvBNAct`` does (``ops/modules.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +11,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..ops.modules import BatchNorm2d, CastCache, Conv2d
 
 
 class ConvBNAct(nn.Sequential):
@@ -24,9 +26,9 @@ class ConvBNAct(nn.Sequential):
                  dtype: torch.dtype = torch.float32):
         pad = (kernel_size - 1) // 2
         layers = [
-            nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
-                      padding=pad, bias=False, dtype=dtype),
-            nn.BatchNorm2d(out_channels),
+            Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                   padding=pad, bias=False, dtype=dtype),
+            BatchNorm2d(out_channels),
         ]
         if act:
             layers.append(nn.ReLU(inplace=True))
@@ -41,16 +43,25 @@ def bilinear_upsample_kernel(kernel_size: int) -> torch.Tensor:
     return wi[:, None] * wi[None, :]
 
 
-class BilinearConvTranspose(nn.ConvTranspose2d):
+class BilinearConvTranspose(CastCache, nn.ConvTranspose2d):
     """Depthwise ConvTranspose2d(k=2f, stride=f, padding=f//2) with a
-    bilinear init. PyTorch flips the kernel that the JAX lhs-dilated conv
-    applies unflipped; ``utils.jax_import`` flips it on import."""
+    bilinear init, trainable as in the JAX package. PyTorch flips the kernel
+    that the JAX lhs-dilated conv applies unflipped; ``utils.jax_import``
+    flips it on import."""
 
     def __init__(self, channels: int, stride: int,
                  dtype: torch.dtype = torch.float32):
         f = stride
         super().__init__(channels, channels, 2 * f, stride=f, padding=f // 2,
-                         groups=channels, bias=False, dtype=dtype)
+                         groups=channels, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.param_as("weight", dt), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:

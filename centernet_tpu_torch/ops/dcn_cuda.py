@@ -1,14 +1,17 @@
-"""Build, binding and launch wrapper of the CUDA DCNv2 forward kernel.
+"""Build, binding and launch wrappers of the CUDA DCNv2 kernels.
 
-The kernel (``csrc/dcn_fwd.cu``) replaces the TPU kernel
-``centernet_tpu/ops/dcn_pallas.py::_fwd_kernel``. It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface at
-first use, cached under ``centernet_tpu_torch/_build/`` by a hash of the
-source, and loaded with ``ctypes``. Nothing here runs when the module is
-imported, so hosts without ``nvcc`` or a GPU can import it.
+``csrc/dcn_fwd.cu`` replaces the TPU kernel
+``centernet_tpu/ops/dcn_pallas.py::_fwd_kernel`` and ``csrc/dcn_bwd.cu``
+replaces ``_bwd_kernel``. At first use both sources are compiled with
+``nvcc`` for ``sm_90a`` (one process per source, side by side) and linked
+into one shared library with a plain C interface, cached under
+``centernet_tpu_torch/_build/`` by a hash of the sources and flags, and
+loaded with ``ctypes``. Nothing here runs when the module is imported, so
+hosts without ``nvcc`` or a GPU can import it.
 
-``launch_counts["dcn_fwd"]`` grows by one at every launch and nowhere else,
-so a run can show that its path went through the kernel.
+``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` grow by one at
+every call that launches the kernel and nowhere else, so a run can show that
+its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dcn_fwd.cu"
+SOURCES = (_PKG / "csrc" / "dcn_fwd.cu", _PKG / "csrc" / "dcn_bwd.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -45,22 +48,39 @@ def find_nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/dcn_fwd.cu`` into ``_build/`` unless an up-to-date
+    """Compile the ``csrc/`` sources into ``_build/`` unless an up-to-date
     library exists; return the library's path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libdcn_fwd_{tag}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    tag = digest.hexdigest()[:12]
+    lib = BUILD_DIR / f"libdcn_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    ptxas = ("-Xptxas", "-v") if verbose else ()
+    objs = [lib.with_name(f"{src.stem}_{tag}.{os.getpid()}.o")
+            for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate() for proc in procs]
+    for src, proc, (_, err) in zip(SOURCES, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} "
+                               f"({proc.returncode}):\n{err}")
+        if verbose:
+            print(err, end="")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
@@ -73,6 +93,8 @@ def _load():
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.dcn_fwd.argtypes = [vp] * 6 + [ci] * 6 + [vp]
             lib.dcn_fwd.restype = ci
+            lib.dcn_bwd.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+            lib.dcn_bwd.restype = ci
             lib.dcn_error_string.argtypes = [ci]
             lib.dcn_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -135,3 +157,50 @@ def deform_conv2d_cuda(x, offsets, mask, weight, bias) -> torch.Tensor:
             f"dcn_fwd launch failed: {lib.dcn_error_string(err).decode()}")
     launch_counts["dcn_fwd"] += 1
     return out
+
+
+def deform_conv2d_backward_cuda(x, offsets, mask, weight, g):
+    """Launch the backward: the forward's inputs (x [B,H,W,Ci] bf16/f32,
+    offsets [B,H,W,18] f32 clamped, mask [B,H,W,9] f32, weight [9*Ci,Co] in
+    x's dtype) and g [B,H,W,Co] f32 -> (dx [B,H,W,Ci] in x's dtype; dty,
+    dtx, dmask [B,H,W,9] f32; dw [9*Ci,Co] f32), on the current stream."""
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv2d_backward_cuda needs CUDA tensors, x "
+                         f"is on {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B,H,W,Ci], got {tuple(x.shape)}")
+    b, h, w, ci = x.shape
+    co = weight.shape[-1]
+    dev = x.device
+    _check(x, "x", (b, h, w, ci), x.dtype, dev)
+    _check(offsets, "offsets", (b, h, w, 18), torch.float32, dev)
+    _check(mask, "mask", (b, h, w, 9), torch.float32, dev)
+    _check(weight, "weight", (9 * ci, co), x.dtype, dev)
+    _check(g, "g", (b, h, w, co), torch.float32, dev)
+    if b * h * w * 9 * max(ci, co) >= 2 ** 31:
+        raise ValueError("deform_conv2d_backward_cuda indexes the per-tap "
+                         "scratch with int32")
+    lib = _load()
+    f32 = {"dtype": torch.float32, "device": dev}
+    dx = torch.zeros((b, h, w, ci), **f32)  # accumulated with atomics
+    dty, dtx, dmask = (torch.empty((b, h, w, 9), **f32) for _ in range(3))
+    dw = torch.zeros((9 * ci, co), **f32)  # accumulated with atomics
+    if dx.numel() == 0 or co == 0:
+        return dx.to(x.dtype), dty.zero_(), dtx.zero_(), dmask.zero_(), dw
+    gk = torch.empty((b * h * w, 9 * ci), **f32)
+    colm = torch.empty((b * h * w, 9 * ci), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dcn_bwd(
+            x.data_ptr(), offsets.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), dty.data_ptr(),
+            dtx.data_ptr(), dmask.data_ptr(), dw.data_ptr(), gk.data_ptr(),
+            colm.data_ptr(), b, h, w, ci, co, int(x.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dcn_bwd launch failed: {lib.dcn_error_string(err).decode()}")
+    launch_counts["dcn_bwd"] += 1
+    return dx.to(x.dtype), dty, dtx, dmask, dw

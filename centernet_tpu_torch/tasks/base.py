@@ -3,13 +3,15 @@
 * ``CenterNetModel``: backbone + one ``CenterHead`` per supervision stack, an
   ``nn.Module`` on NCHW channels_last tensors.
 * ``CenterNet``: the task. It owns the model on an explicit device, the arch
-  constants, the on-device uint8 normalisation and the valid-region mask.
-  Its entry points take NHWC images, as the JAX package's do.
+  constants, the on-device uint8 normalisation, the valid-region mask, the
+  on-device target encoding and the optimizer (Adam + MultiStep LR). Its
+  entry points take NHWC images, as the JAX package's do. The model is in
+  ``eval()`` mode except inside a train step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,8 +65,25 @@ class CenterNetModel(nn.Module):
         return [head(f) for head, f in zip(self.heads, feats)]
 
 
+class Optimizer:
+    """Adam and its MultiStep learning-rate schedule, stepped together: the
+    schedule counts optimizer updates, as optax's does."""
+
+    def __init__(self, adam: torch.optim.Adam,
+                 schedule: torch.optim.lr_scheduler.MultiStepLR):
+        self.adam = adam
+        self.schedule = schedule
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        self.adam.step()
+        self.schedule.step()
+
+
 class CenterNet:
-    """Task base: model, arch constants and image preparation."""
+    """Task base: model, arch constants, image preparation, optimizer."""
 
     heads: Mapping[str, int] = {}
     mean = (0.408, 0.447, 0.470)  # BGR
@@ -72,10 +91,13 @@ class CenterNet:
 
     def __init__(self, arch: str = "dla_34",
                  dtype: torch.dtype = torch.float32, device=None,
-                 seed: int = 0):
+                 seed: int = 0, learning_rate: float = 25e-5,
+                 learning_rate_milestones: Optional[Sequence[int]] = None):
         self.device = resolve_device(device)
         self.arch = arch
         self.dtype = dtype
+        self.learning_rate = learning_rate
+        self.learning_rate_milestones = list(learning_rate_milestones or [])
         self.head_conv = arch_head_conv(arch)
         self.num_stacks = arch_num_stacks(arch)
         self.padding = arch_test_padding(arch)
@@ -87,6 +109,15 @@ class CenterNet:
         scale, bias = normalize_coeffs(self.mean, self.std)
         self._norm_scale = torch.from_numpy(scale).to(self.device)
         self._norm_bias = torch.from_numpy(bias).to(self.device)
+
+    def train(self, mode: bool = True) -> "CenterNet":
+        """Put the model in train mode (batch statistics, autograd-recorded
+        casts) or back in eval mode."""
+        self.model.train(mode)
+        return self
+
+    def eval(self) -> "CenterNet":
+        return self.train(False)
 
     def prep_images(self, x) -> torch.Tensor:
         """NHWC images onto the device; integer batches are normalised there
@@ -103,6 +134,34 @@ class CenterNet:
         x = x.contiguous(memory_format=torch.channels_last)
         return [{k: v.permute(0, 2, 3, 1) for k, v in out.items()}
                 for out in self.model(x)]
+
+    def maybe_encode_targets(self, input_hw: Tuple[int, int],
+                             target: Dict[str, torch.Tensor]):
+        """Raw padded annotations (``boxes``, ``classes``, ``valid``, from
+        ``data.PaddedAnnotationSample``) are encoded on the task's device;
+        already-encoded targets pass through."""
+        if "boxes" in target:
+            return self.encode_targets(input_hw, target)
+        return target
+
+    def encode_targets(self, input_hw, target):
+        raise NotImplementedError
+
+    def loss(self, outputs, target):
+        raise NotImplementedError
+
+    def configure_optimizer(self, steps_per_epoch: int = 1) -> Optimizer:
+        """Adam (b1 0.9, b2 0.999, eps 1e-8) at ``learning_rate``, times 0.1
+        from each epoch milestone on (``steps_per_epoch`` converts them into
+        update counts; milestones that land on one count apply once, as the
+        JAX package's boundary dict has them)."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        adam = torch.optim.Adam(params, lr=self.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
+        steps = sorted({int(m) * steps_per_epoch
+                        for m in self.learning_rate_milestones})
+        schedule = torch.optim.lr_scheduler.MultiStepLR(adam, steps, gamma=0.1)
+        return Optimizer(adam, schedule)
 
     @staticmethod
     def _mask_valid_region(hm_sig: torch.Tensor,

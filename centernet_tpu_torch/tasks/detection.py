@@ -1,21 +1,25 @@
 """COCO object-detection task, PyTorch port of
-``centernet_tpu/tasks/detection.py`` (serving path: forward + decode).
+``centernet_tpu/tasks/detection.py`` (serving: forward + decode; training:
+target encoding + loss).
 
 Heads {heatmap: num_classes, width_height: 2, regression: 2}. Forward,
 sigmoid, valid-region mask and ``ctdet_decode`` run on the task's device and
 return only [B, K, 6]; unpadding, unscaling and per-class grouping are numpy
-host work. The TTA path (``predict``), the losses and the target encoders
-come in later slices.
+host work. The loss is 1 * focal + 0.1 * L1(wh) + 1 * L1(offset), averaged
+over the supervision stacks. The TTA path (``predict``) comes in a later
+slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.sample import encode_detection
 from ..ops.decode import ctdet_decode
+from ..ops.losses import focal_loss, reg_l1_loss, sigmoid_clamped
 from .base import CenterNet, to_numpy
 
 # The 80 valid COCO category ids.
@@ -36,9 +40,14 @@ class CenterNetDetection(CenterNet):
 
     valid_ids = COCO_VALID_IDS
 
+    max_objs = 128
+
     def __init__(self, arch: str = "dla_34", num_classes: int = 80,
                  decode_k: int = 100, dtype: torch.dtype = torch.float32,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, learning_rate: float = 25e-5,
+                 learning_rate_milestones: Optional[Sequence[int]] = None,
+                 hm_weight: float = 1.0, wh_weight: float = 0.1,
+                 off_weight: float = 1.0):
         self.num_classes = num_classes
         self.heads = {
             "heatmap": num_classes,
@@ -46,7 +55,39 @@ class CenterNetDetection(CenterNet):
             "regression": 2,
         }
         self.decode_k = decode_k
-        super().__init__(arch, dtype=dtype, device=device, seed=seed)
+        self.hm_weight = hm_weight
+        self.wh_weight = wh_weight
+        self.off_weight = off_weight
+        super().__init__(arch, dtype=dtype, device=device, seed=seed,
+                         learning_rate=learning_rate,
+                         learning_rate_milestones=learning_rate_milestones)
+
+    def encode_targets(self, input_hw, target):
+        """Padded annotations [B, N, ...] -> detection targets, on the
+        task's device."""
+        return encode_detection(
+            target["boxes"], target["classes"], target["valid"],
+            tuple(input_hw), num_classes=self.num_classes,
+            down_ratio=self.down_ratio)
+
+    def loss(self, outputs, target):
+        """Weighted multi-head loss averaged over stacks: ``outputs`` per
+        stack a dict of NHWC f32 head maps -> (loss, {"loss", "hm_loss",
+        "wh_loss", "off_loss"})."""
+        hm_loss = wh_loss = off_loss = 0.0
+        for output in outputs:
+            hm_loss += focal_loss(sigmoid_clamped(output["heatmap"]),
+                                  target["heatmap"])
+            wh_loss += reg_l1_loss(output["width_height"],
+                                   target["regression_mask"],
+                                   target["indices"], target["width_height"])
+            off_loss += reg_l1_loss(output["regression"],
+                                    target["regression_mask"],
+                                    target["indices"], target["regression"])
+        loss = (self.hm_weight * hm_loss + self.wh_weight * wh_loss
+                + self.off_weight * off_loss) / len(outputs)
+        return loss, {"loss": loss, "hm_loss": hm_loss, "wh_loss": wh_loss,
+                      "off_loss": off_loss}
 
     @torch.inference_mode()
     def infer_decode(self, images, valid_hw=None) -> torch.Tensor:

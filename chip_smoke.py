@@ -10,16 +10,29 @@ It imports neither JAX nor the JAX package. Phases, in order; any failure
 raises and the script exits non-zero without printing a result:
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu`` from the checkout;
+2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu`` and ``dcn_bwd.cu``
+   from the checkout (one nvcc per source, side by side);
 3. kernel vs plain: the DCNv2 forward kernel against its plain PyTorch
    version at the 7 shapes of dla_34's 16 DCN layers at 512x512 (batch 4,
    as served), in bf16 and f32, with offsets across the clamp bounds; times
    of both and the card's bound for the same work;
-4. slice: ``CenterNetDetection("dla_34", dtype=bfloat16)`` on the card serves
-   3 requests of 4 uint8 512x512 images through ``predict_batch``; the DCN
-   launch count must grow by 16 per forward; one image is held against the
-   same weights in f32 on the CPU (plain path);
-5. timing: forward + decode images/s at batch 4 and 16 (CUDA events).
+4. serving slice: ``CenterNetDetection("dla_34", dtype=bfloat16)`` on the
+   card serves 3 requests of 4 uint8 512x512 images through
+   ``predict_batch``; the DCN launch count must grow by 16 per forward; one
+   image is held against the same weights in f32 on the CPU (plain path);
+5. serving timing: forward + decode images/s at batch 4 and 16 (CUDA
+   events);
+6. backward kernel vs plain: the DCNv2 backward kernel against its plain
+   version at the same 7 shapes, batch 4 (the train batch), bf16 and f32,
+   every output (dx, dty, dtx, dmask, dW); times and bounds;
+7. train slice: ``make_train_step`` of the bf16 task takes 10 Adam steps on
+   one fixed batch of 4 uint8 512x512 images with 8 boxes each (targets
+   encoded on the card); each DCN kernel must launch 16 times per step and
+   the loss must fall; then one f32 step of one image on the card is held
+   against the same step on the CPU (plain path), gradient by gradient;
+8. train timing: train-step images/s at batch 4 and 8 (CUDA events), host
+   enqueue, device busy, top kernels, the DCN kernels' in-step time, peak
+   memory.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
@@ -41,6 +54,11 @@ SEED = 0
 HW = 512
 BATCH = 4
 REQUESTS = 3
+TRAIN_STEPS = 10
+BOXES = 8  # per image, as bench.py's train batches have them
+# Input side of the card-vs-CPU f32 gradient check: the full 512x512 step
+# of one image on the CPU's plain path.
+GRAD_CHECK_HW = 512
 # (map side, Ci, Co, layers): dla_34's 16 DCN layers at a 512x512 input.
 DLA34_DCN = [
     (128, 64, 64, 5),
@@ -62,12 +80,29 @@ HEADS_TOL = 5e-2
 # The same run, at the decoded detections (output-map cells, sigmoid scores).
 BOX_TOL = 5e-2
 SCORE_TOL = 1e-2
+# Backward kernel vs plain, per output, as max |got - want| / max(1, max
+# |want|). f32: exact f32 products summed in another order (dW over up to
+# 65536 pixels, dx by atomics in an order that changes from run to run).
+# bf16: g, gk * mask and col * mask are rounded to bf16 on both sides from
+# f32 values summed in another order, so one may round to the neighbouring
+# bf16 value; the JAX package's own gate for its TPU backward.
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+BWD_OUTPUTS = ("dx", "dty", "dtx", "dmask", "dw")
+# f32 train step of one image, card vs CPU: each gradient within GRAD_TOL of
+# its tensor's norm, all of them together within GRAD_TOL_ALL. A train-mode
+# step in f32 is reproducible only to that: ReLU inputs within rounding of
+# zero flip under another summation order and move every gradient upstream
+# of them (tests/test_torch_port_train.py measures it on the CPU).
+GRAD_TOL = 5e-2
+GRAD_TOL_ALL = 3e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s of the
 # tensor cores in bf16 and of the f32 pipes outside them.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:278"
 KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_fwd.cu"
+BWD_KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:414"
+BWD_KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_bwd.cu"
 DEVICE = "cuda"
 
 
@@ -118,10 +153,10 @@ def enqueue_ms(fn, iters: int) -> float:
 
 def device_busy(fn, iters: int) -> dict:
     """Device time per ``fn`` call from a torch.profiler trace: the sum of
-    the kernels' durations, the dcn_fwd kernels' share, the kernel count and
-    the 8 costliest kernels; and the 6 host ops with the most self time
-    (inflated by the profiler itself). Zeros mean the profiler recorded no
-    device time."""
+    the kernels' durations, the dcn_fwd and dcn_bwd kernels' shares, the
+    kernel count and the 8 costliest kernels; and the 6 host ops with the
+    most self time (inflated by the profiler itself). Zeros mean the
+    profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,7 +167,11 @@ def device_busy(fn, iters: int) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # user annotations (the optimizer's "Optimizer.step#Adam.step") also
+    # carry device time: it spans kernels already counted
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     host = sorted((e for e in events if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
 
@@ -143,6 +182,7 @@ def device_busy(fn, iters: int) -> dict:
     return {
         "busy_ms": sum(dev_ms(e) for e in kernels),
         "dcn_ms": sum(dev_ms(e) for e in kernels if "dcn_fwd" in e.key),
+        "dcn_bwd_ms": sum(dev_ms(e) for e in kernels if "dcn_bwd" in e.key),
         "launches": sum(e.count for e in kernels) / iters,
         "top": [(e.key, dev_ms(e)) for e in kernels[:8]],
         "host_top": [(e.key, e.self_cpu_time_total / 1e3 / iters, e.count / iters)
@@ -237,6 +277,190 @@ def check_kernel(dev):
     torch.cuda.empty_cache()
     print("no single PyTorch call computes DCNv2: library_ms is null")
     return rows
+
+
+def dcn_bwd_bound_ms(b, hw, ci, co, dtype):
+    """Least time for one DCN backward: x, offsets, mask, W and g read once,
+    dx, the offset and mask gradients and dW written once, over HBM
+    bandwidth, against the two contractions (gk = W g and dW) at the dtype's
+    peak and the sampling (19 multiply-adds per sampled value: the sample,
+    its two coordinate derivatives, the dx scatter and the three Ci sums) at
+    the f32 peak. Returns (ms, "bytes" or "operations", the bytes' time)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    pix = b * hw * hw
+    nbytes = (2 * pix * ci * esize + 2 * pix * 27 * 4 + pix * co * 4
+              + 9 * ci * co * (esize + 4))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(4.0 * pix * 9 * ci * co / PEAK_FLOPS[dtype],
+                38.0 * pix * 9 * ci / PEAK_FLOPS[torch.float32])
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", 1e3 * t_bytes)
+
+
+def check_backward_kernel(dev):
+    """Phase 6: backward kernel vs plain at every dla_34 DCN shape, bf16 and
+    f32, every output."""
+    from centernet_tpu_torch.ops.dcn import deform_conv2d_backward_reference
+    from centernet_tpu_torch.ops.dcn_cuda import deform_conv2d_backward_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for hw, ci, co, layers in DLA34_DCN:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, off, mask, w, _ = dcn_inputs(BATCH, hw, ci, co, dtype, gen, dev)
+            g = torch.randn(BATCH, hw, hw, co, generator=gen, device=dev)
+            args = (x, off, mask, w, g)
+            got = deform_conv2d_backward_cuda(*args)
+            want = deform_conv2d_backward_reference(*args)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in zip(BWD_OUTPUTS, got, want):
+                if not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"non-finite {name} at {hw}^2 "
+                                       f"C{ci}->{co} {dtype}")
+                err = float((a.float() - b.float()).abs().max())
+                errs[name] = (err, err / max(1.0, float(b.float().abs().max())))
+            tol = BWD_TOL[dtype]
+            ms = cuda_ms(lambda: deform_conv2d_backward_cuda(*args), 20,
+                         l2_flush.zero_)
+            plain_ms = cuda_ms(
+                lambda: deform_conv2d_backward_reference(*args), 5,
+                l2_flush.zero_)
+            bound_ms, bound_by, mem_ms = dcn_bwd_bound_ms(BATCH, hw, ci, co,
+                                                          dtype)
+            row = {
+                "shape": f"B{BATCH} {hw}x{hw} C{ci}->{co}",
+                "dtype": str(dtype).replace("torch.", ""),
+                "layers": layers,
+                "max_abs_err": max(e for e, _ in errs.values()),
+                "max_rel_err": {k: r for k, (_, r) in errs.items()},
+                "tol": tol, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "memory_bound_ms": mem_ms,
+            }
+            rows.append(row)
+            print(f"{row['shape']:>24} {row['dtype']:>8} x{layers}: rel err "
+                  + " ".join(f"{k} {r:.1e}" for k, (_, r) in errs.items())
+                  + f" (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
+                  f"({bound_by}; memory {1e3 * mem_ms:.2f} us)", flush=True)
+            bad = [k for k, (_, r) in errs.items() if r > tol]
+            if bad:
+                raise RuntimeError(f"backward kernel disagrees with the plain "
+                                   f"version at {row['shape']} {row['dtype']} "
+                                   f"in {bad}")
+            del args, got, want
+    del l2_flush
+    torch.cuda.empty_cache()
+    print("no single PyTorch call computes the DCNv2 backward: library_ms is "
+          "null")
+    return rows
+
+
+def train_batch(rng, b, hw=HW):
+    """``b`` uint8 images and their padded annotations, on the card: BOXES
+    random boxes per image as bench.py draws them (x, y, w, h uniform in
+    [10, 200) at 512x512), classes random, the other rows invalid."""
+    n = 128
+    boxes = np.zeros((b, n, 4), np.float32)
+    boxes[:, :BOXES] = rng.uniform(10, 200, (b, BOXES, 4)) * (hw / 512)
+    target = {
+        "boxes": boxes,
+        "classes": rng.integers(0, 80, (b, n)).astype(np.int32),
+        "valid": (np.arange(n) < BOXES)[None].repeat(b, 0),
+    }
+    images = rng.integers(0, 256, (b, hw, hw, 3), dtype=np.uint8)
+    return (torch.from_numpy(images).to(DEVICE),
+            {k: torch.from_numpy(v).to(DEVICE) for k, v in target.items()})
+
+
+def run_train_slice(task, images, target):
+    """Phase 7, the counted run: TRAIN_STEPS steps of ``task`` on one batch;
+    each DCN kernel must launch 16 times a step and the loss must fall."""
+    from centernet_tpu_torch.ops import dcn_cuda
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    step = make_train_step(task, task.configure_optimizer(1))
+    losses = []
+    dcn_cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = dict(dcn_cuda.launch_counts)
+        stats = {k: float(v) for k, v in step(images, target).items()}
+        for name in ("dcn_fwd", "dcn_bwd"):
+            grew = dcn_cuda.launch_counts[name] - before.get(name, 0)
+            if grew != 16:
+                raise RuntimeError(f"step {i}: {name} launched {grew} times, "
+                                   f"not 16")
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise RuntimeError(f"step {i}: non-finite loss {stats}")
+        losses.append(stats["loss"])
+        print(f"step {i}: loss {stats['loss']:.4f} (hm {stats['hm_loss']:.4f}"
+              f", wh {stats['wh_loss']:.4f}, off {stats['off_loss']:.4f})",
+              flush=True)
+    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    print(f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s (the first "
+          f"includes cuDNN warm-up); launches {launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall: {losses}")
+    return launches, losses
+
+
+def check_train_grads(task, rng):
+    """Phase 7, then: one f32 step of one image on the card against the
+    same step on the CPU's plain path, same weights and batch."""
+    from centernet_tpu_torch.ops.dcn import DCN
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    images, target = train_batch(rng, 1, GRAD_CHECK_HW)
+    state = {k: v.detach().cpu() for k, v in task.model.state_dict().items()}
+    grads = {}
+    for dev in (DEVICE, "cpu"):
+        t = CenterNetDetection("dla_34", dtype=torch.float32, device=dev,
+                               seed=SEED)
+        t.model.load_state_dict(state)
+        step = make_train_step(t, t.configure_optimizer(1))
+        t0 = time.perf_counter()
+        loss = float(step(images.to(dev),
+                          {k: v.to(dev) for k, v in target.items()})["loss"])
+        print(f"f32 step of one {GRAD_CHECK_HW}x{GRAD_CHECK_HW} image on "
+              f"{dev}: loss {loss:.6f}, {time.perf_counter() - t0:.1f} s")
+        grads[dev] = {n: p.grad.cpu() if p.grad is not None
+                      else torch.zeros(p.shape)
+                      for n, p in t.model.named_parameters()}
+        dcn_biases = {f"{n}.bias" for n, m in t.model.named_modules()
+                      if isinstance(m, DCN)}
+    card, cpu = grads[DEVICE], grads["cpu"]
+    worst, num, den = (0.0, ""), 0.0, 0.0
+    for n, want in cpu.items():
+        got = card[n]
+        if n in dcn_biases:
+            # a train-mode BatchNorm follows, so the true gradient is 0;
+            # 512x512 sums 64 times the pixels of the CPU tests' 64x64
+            bound = 1e-4 * float(cpu[n[:-len("bias")] + "weight"].abs().max())
+            if max(float(got.abs().max()), float(want.abs().max())) > bound:
+                raise RuntimeError(f"{n}: gradient not ~0")
+            continue
+        if not bool(want.any()):  # an unused ``project``: no gradient
+            if bool(got.any()):
+                raise RuntimeError(f"{n}: gradient on the card only")
+            continue
+        d = (got.double() - want.double()).norm()
+        err = float(d / want.double().norm())
+        worst = max(worst, (err, n))
+        num += float(d) ** 2
+        den += float(want.double().norm()) ** 2
+        if err > GRAD_TOL:
+            raise RuntimeError(f"gradient {n} disagrees: {err:.3e}")
+    total = (num / den) ** 0.5
+    print(f"f32 gradients, card vs CPU: worst {worst[0]:.3e} of the tensor's "
+          f"norm ({worst[1]}; tol {GRAD_TOL}), all together {total:.3e} "
+          f"(tol {GRAD_TOL_ALL})")
+    if total > GRAD_TOL_ALL:
+        raise RuntimeError(f"gradients disagree overall: {total:.3e}")
+    return {"worst": worst[0], "worst_at": worst[1], "all": total}
 
 
 def seed_weights(model, seed):
@@ -410,7 +634,7 @@ def main() -> int:
     phase("3 kernel vs plain (dla_34 DCN shapes at 512x512, batch 4)")
     rows = check_kernel(dev)
 
-    phase("4 slice: dla_34 detection serving, 512x512, bf16")
+    phase("4 serving slice: dla_34 detection serving, 512x512, bf16")
     task = CenterNetDetection("dla_34", dtype=torch.bfloat16, device=dev,
                               seed=SEED)
     seed_weights(task.model, SEED + 1)
@@ -456,7 +680,7 @@ def main() -> int:
     print(f"detections: {BATCH} x 100 x 6 per request, finite")
     check_slice(task, requests[0])
 
-    phase("5 timing: forward + decode (CUDA events, median of 20)")
+    phase("5 serving timing: forward + decode (CUDA events, median of 20)")
     timing = {}
     for b in (4, 16):
         imgs = torch.from_numpy(
@@ -484,22 +708,82 @@ def main() -> int:
     print(f"DCN kernel time per B4 forward (phase 3, cold L2): {dcn_ms:.3f} "
           f"ms of {timing[4]:.3f} ms forward + decode")
 
-    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    by_bytes = sum(r["bound_ms"] * r["layers"] for r in bf16
-                   if r["bound_by"] == "bytes")
-    bound_ms = sum(r["bound_ms"] * r["layers"] for r in bf16)
-    kernels = [{
-        "name": "dcn_fwd", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": KERNEL_TPU, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # per B4 bf16 forward of the served model: the 16 layers summed
-        "ms": dcn_ms,
-        "plain_ms": sum(r["plain_ms"] * r["layers"] for r in bf16),
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if by_bytes >= bound_ms / 2 else "operations",
-        "library_ms": None,
-        "per_shape": rows,
-    }]
+    phase("6 backward kernel vs plain (dla_34 DCN shapes at 512x512, batch 4)")
+    bwd_rows = check_backward_kernel(dev)
+
+    phase("7 train slice: dla_34 detection train step, 512x512, bf16, Adam")
+    train_task = CenterNetDetection("dla_34", dtype=torch.bfloat16,
+                                    device=dev, seed=SEED)
+    seed_weights(train_task.model, SEED + 1)
+    if {p.dtype for p in train_task.model.parameters()} != {torch.float32}:
+        raise RuntimeError("the bf16 task's parameters are not f32")
+    grad_check = check_train_grads(train_task, rng)
+    images, target = train_batch(rng, BATCH)
+    train_launches, losses = run_train_slice(train_task, images, target)
+
+    phase("8 train timing: train steps (CUDA events, median of 10)")
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    step = make_train_step(train_task, train_task.configure_optimizer(1))
+    train_timing = {}
+    for b in (4, 8):
+        imgs, tgt = train_batch(rng, b)
+        for _ in range(2):
+            step(imgs, tgt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: step(imgs, tgt), 10)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        host_ms = enqueue_ms(lambda: step(imgs, tgt), 5)
+        busy = device_busy(lambda: step(imgs, tgt), 3)
+        train_timing[b] = {"ms": ms, "busy": busy}
+        print(f"train B{b}: {ms:.3f} ms per step, {1e3 * b / ms:.1f} img/s, "
+              f"peak memory {peak:.2f} GiB [{card}]")
+        print(f"train B{b}: host enqueue {host_ms:.3f} ms per step; device "
+              f"busy {busy['busy_ms']:.3f} ms per step ({busy['launches']:.0f}"
+              f" kernels), idle {1 - busy['busy_ms'] / ms:.1%} of the step; "
+              f"dcn_fwd {busy['dcn_ms']:.3f} ms, dcn_bwd "
+              f"{busy['dcn_bwd_ms']:.3f} ms")
+        print("  top kernels (ms per step): " + "; ".join(
+            f"{name[:60]} {t:.3f}" for name, t in busy["top"]))
+        print("  top host ops (self ms per step, calls): " + "; ".join(
+            f"{name} {t:.3f} x{n:.0f}" for name, t, n in busy["host_top"]))
+    bwd_ms = sum(r["ms"] * r["layers"] for r in bwd_rows
+                 if r["dtype"] == "bfloat16")
+    print(f"DCN backward kernel time per B4 step (phase 6, cold L2): "
+          f"{bwd_ms:.3f} ms; in the step (phase 8 profile): "
+          f"{train_timing[4]['busy']['dcn_bwd_ms']:.3f} ms of "
+          f"{train_timing[4]['ms']:.3f} ms")
+
+    def summary(name, src, tpu, kernel_rows, launches_by_path, ms):
+        bf16 = [r for r in kernel_rows if r["dtype"] == "bfloat16"]
+        by_bytes = sum(r["bound_ms"] * r["layers"] for r in bf16
+                       if r["bound_by"] == "bytes")
+        bound = sum(r["bound_ms"] * r["layers"] for r in bf16)
+        return {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches_by_path["train"],
+            "launches_by_path": launches_by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+            # per B4 bf16 pass of the model: the 16 layers summed
+            "ms": ms,
+            "plain_ms": sum(r["plain_ms"] * r["layers"] for r in bf16),
+            "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+            "library_ms": None,
+            "per_shape": kernel_rows,
+        }
+
+    kernels = [
+        summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
+                {"serve": launches, "train": train_launches["dcn_fwd"]},
+                dcn_ms),
+        summary("dcn_bwd", BWD_KERNEL_SRC, BWD_KERNEL_TPU, bwd_rows,
+                {"serve": 0, "train": train_launches["dcn_bwd"]}, bwd_ms),
+    ]
+    print(json.dumps({"train": {
+        "losses": losses, "grad_check": grad_check,
+        "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
