@@ -148,30 +148,33 @@ def deform_conv2d_backward_reference(x, offsets, mask, weight, g):
             dtx.reshape(shape), dmask.reshape(shape), dw)
 
 
-def deform_conv2d(x, offsets, mask, weight, bias) -> torch.Tensor:
-    """DCNv2 forward with ``pallas_deform_conv_fwd``'s signature (offsets
-    already clamped): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+def deform_conv2d(x, offsets, mask, weight, bias,
+                  radius: int = 4) -> torch.Tensor:
+    """DCNv2 forward with ``pallas_deform_conv_fwd``'s signature: offsets
+    already clamped to [-radius, radius - CLIP_EPS]. The CUDA kernel for CUDA
+    tensors, which stages the window of x that this radius allows; the plain
+    version for CPU tensors, which samples exactly and ignores ``radius``."""
     weight = weight.to(x.dtype)
     bias = bias.float()
     if x.device.type == "cpu":
         return deform_conv2d_reference(x, offsets, mask, weight, bias)
     return dcn_cuda.deform_conv2d_cuda(
         x.contiguous(), offsets.float().contiguous(), mask.float().contiguous(),
-        weight.contiguous(), bias.contiguous())
+        weight.contiguous(), bias.contiguous(), int(radius))
 
 
-def deform_conv2d_backward(x, offsets, mask, weight, g):
+def deform_conv2d_backward(x, offsets, mask, weight, g, radius: int = 4):
     """DCNv2 backward with ``pallas_deform_conv_bwd``'s signature (offsets
-    clamped; see ``deform_conv2d_backward_reference``): the CUDA kernel for
-    CUDA tensors, the plain version for CPU tensors."""
+    clamped to [-radius, radius - CLIP_EPS]; see
+    ``deform_conv2d_backward_reference``): the CUDA kernel for CUDA tensors,
+    the plain version, which ignores ``radius``, for CPU tensors."""
     weight = weight.to(x.dtype)
     g = g.float()
     if x.device.type == "cpu":
         return deform_conv2d_backward_reference(x, offsets, mask, weight, g)
     return dcn_cuda.deform_conv2d_backward_cuda(
         x.contiguous(), offsets.float().contiguous(), mask.float().contiguous(),
-        weight.contiguous(), g.contiguous())
+        weight.contiguous(), g.contiguous(), int(radius))
 
 
 class DeformConv2dFunction(torch.autograd.Function):
@@ -190,7 +193,7 @@ class DeformConv2dFunction(torch.autograd.Function):
         ctx.save_for_backward(x, offsets, mask, weight)
         lo, hi = -float(radius), float(radius) - CLIP_EPS
         return deform_conv2d(x, offsets.float().clamp(lo, hi), mask, weight,
-                             bias)
+                             bias, radius)
 
     @staticmethod
     def backward(ctx, g):
@@ -198,7 +201,7 @@ class DeformConv2dFunction(torch.autograd.Function):
         lo, hi = -float(ctx.radius), float(ctx.radius) - CLIP_EPS
         off = offsets.float()
         dx, dty, dtx, dmask, dw = deform_conv2d_backward(
-            x, off.clamp(lo, hi), mask, weight, g)
+            x, off.clamp(lo, hi), mask, weight, g, ctx.radius)
         pass_thru = torch.where(
             (off > lo) & (off < hi), 1.0,
             torch.where((off == lo) | (off == hi), 0.5, 0.0))

@@ -14,8 +14,9 @@ raises and the script exits non-zero without printing a result:
    from the checkout (one nvcc per source, side by side);
 3. kernel vs plain: the DCNv2 forward kernel against its plain PyTorch
    version at the 7 shapes of dla_34's 16 DCN layers at 512x512 (batch 4,
-   as served), in bf16 and f32, with offsets across the clamp bounds; times
-   of both and the card's bound for the same work;
+   as served), in bf16 and f32, with offsets across the clamp bounds and the
+   clamp radius handed to the kernel; times of both, the time by launched
+   kernel name, and the card's bound for the same work;
 4. serving slice: ``CenterNetDetection("dla_34", dtype=bfloat16)`` on the
    card serves 3 requests of 4 uint8 512x512 images through
    ``predict_batch``; the DCN launch count must grow by 16 per forward; one
@@ -24,7 +25,8 @@ raises and the script exits non-zero without printing a result:
    events);
 6. backward kernel vs plain: the DCNv2 backward kernel against its plain
    version at the same 7 shapes, batch 4 (the train batch), bf16 and f32,
-   every output (dx, dty, dtx, dmask, dW); times and bounds;
+   every output (dx, dty, dtx, dmask, dW); times (also by launched kernel
+   name: the backward is two launches) and bounds;
 7. train slice: ``make_train_step`` of the bf16 task takes 10 Adam steps on
    one fixed batch of 4 uint8 512x512 images with 8 boxes each (targets
    encoded on the card); each DCN kernel must launch 16 times per step and
@@ -99,6 +101,26 @@ GRAD_TOL_ALL = 3e-2
 # tensor cores in bf16 and of the f32 pipes outside them.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Constants, not measured by this script: bf16 B4 ms per shape of the kernels
+# before their redesign for Hopper (gather per 64 output channels + WMMA
+# forward; three-launch backward through device memory), H100 80GB HBM3 at
+# 700 W, cold L2, timed without the lead below. Printed on a line of their
+# own beside this run's ``nolead_ms``, and kept out of the ``kernels`` line.
+EARLIER_MS = {
+    "dcn_fwd": {(128, 64, 64): 0.0827, (64, 128, 64): 0.0472,
+                (64, 128, 128): 0.0832, (32, 256, 128): 0.0683,
+                (32, 256, 256): 0.0820, (32, 256, 64): 0.0663,
+                (16, 512, 256): 0.1355},
+    "dcn_bwd": {(128, 64, 64): 0.8300, (64, 128, 64): 0.3661,
+                (64, 128, 128): 0.5164, (32, 256, 128): 0.2722,
+                (32, 256, 256): 0.4373, (32, 256, 64): 0.1986,
+                (16, 512, 256): 0.2283},
+}
+# Phases 3 and 6 let the card spin this long (about 0.5 ms) before each timed
+# kernel call: the wrappers' host work (checks, allocations, two launches)
+# takes longer than the smaller layers' kernels run, and would be timed
+# instead of them. ``nolead_ms`` is the same timing without the spin.
+LEAD_CYCLES = 1_000_000
 KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:278"
 KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_fwd.cu"
 BWD_KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:414"
@@ -121,13 +143,18 @@ def gpu_name_and_limit() -> str:
                 "--format=csv,noheader"]).splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, flush=None) -> float:
+def cuda_ms(fn, iters: int, flush=None, lead_cycles: int = 0) -> float:
     """Median device time of ``fn`` in ms over ``iters`` runs, each between
-    two CUDA events; ``flush`` runs outside the events before each one."""
+    two CUDA events; ``flush`` runs outside the events before each one.
+    ``lead_cycles`` > 0 spins the card that long before the first event, so
+    that the host has queued all of ``fn`` by the time the card reaches it:
+    the events then bracket device work alone, not the host's enqueue."""
     pairs = []
     for _ in range(iters):
         if flush is not None:
             flush()
+        if lead_cycles:
+            torch.cuda._sleep(lead_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -190,6 +217,39 @@ def device_busy(fn, iters: int) -> dict:
     }
 
 
+def kernel_times(fn, iters: int, flush=None) -> dict:
+    """ms per ``fn`` call by launched kernel name (torch.profiler), the
+    hand-written kernels under their short names; ``flush`` runs before each
+    call and its kernels are left out."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA
+                or "FillFunctor<unsigned char>" in e.key):  # the L2 flush
+            continue
+        m = re.search(r"dcn_\w+_kernel", e.key)
+        name = m.group(0) if m else re.sub(r"^void |<.*", "", e.key)[:40]
+        out[name] += getattr(e, "self_device_time_total", 0.0) / 1e3 / iters
+    return dict(out)
+
+
+def fmt_times(times: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        times.items(), key=lambda kv: -kv[1]))
+
+
 def dcn_inputs(b, hw, ci, co, dtype, gen, dev):
     """Seeded kernel inputs; offsets drawn across +-(r+1), clamped as the
     module clamps them, with some exactly on -r and r - CLIP_EPS."""
@@ -205,7 +265,7 @@ def dcn_inputs(b, hw, ci, co, dtype, gen, dev):
     mask = torch.rand(b, hw, hw, 9, **kw)
     w = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
     bias = torch.randn(co, **kw) * 0.1
-    return x, off, mask, w, bias
+    return x, off, mask, w, bias, r
 
 
 def dcn_bound_ms(b, hw, ci, co, dtype):
@@ -240,7 +300,7 @@ def check_kernel(dev):
         for dtype in (torch.bfloat16, torch.float32):
             args = dcn_inputs(BATCH, hw, ci, co, dtype, gen, dev)
             got = deform_conv2d_cuda(*args)
-            want = deform_conv2d_reference(*args)
+            want = deform_conv2d_reference(*args[:5])
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise RuntimeError(f"non-finite kernel output at {hw}^2 "
@@ -249,9 +309,13 @@ def check_kernel(dev):
             scale = max(1.0, float(want.abs().max()))
             tol = KERNEL_TOL[dtype]
             ms = cuda_ms(lambda: deform_conv2d_cuda(*args), 20,
-                         l2_flush.zero_)
-            plain_ms = cuda_ms(lambda: deform_conv2d_reference(*args), 5,
+                         l2_flush.zero_, LEAD_CYCLES)
+            nolead_ms = cuda_ms(lambda: deform_conv2d_cuda(*args), 20,
+                                l2_flush.zero_)
+            plain_ms = cuda_ms(lambda: deform_conv2d_reference(*args[:5]), 5,
                                l2_flush.zero_)
+            by_name = kernel_times(lambda: deform_conv2d_cuda(*args), 5,
+                                   l2_flush.zero_)
             bound_ms, bound_by, mem_ms = dcn_bound_ms(BATCH, hw, ci, co,
                                                       dtype)
             row = {
@@ -261,13 +325,17 @@ def check_kernel(dev):
                 "max_rel_err": err / scale, "tol": tol, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "memory_bound_ms": mem_ms,
+                "radius": args[5], "by_kernel_ms": by_name,
+                "nolead_ms": nolead_ms,
             }
             rows.append(row)
             print(f"{row['shape']:>24} {row['dtype']:>8} x{layers}: "
                   f"abs err {err:.3e} rel {err / scale:.3e} (tol {tol:.0e}) "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"kernel {ms:.4f} ms (no lead {nolead_ms:.4f}), plain "
+                  f"{plain_ms:.4f} ms, "
                   f"bound {1e3 * bound_ms:.2f} us ({bound_by}; memory "
-                  f"{1e3 * mem_ms:.2f} us)", flush=True)
+                  f"{1e3 * mem_ms:.2f} us); by kernel: {fmt_times(by_name)}",
+                  flush=True)
             if err / scale > tol:
                 raise RuntimeError(f"kernel disagrees with the plain version "
                                    f"at {row['shape']} {row['dtype']}: "
@@ -308,11 +376,12 @@ def check_backward_kernel(dev):
     rows = []
     for hw, ci, co, layers in DLA34_DCN:
         for dtype in (torch.bfloat16, torch.float32):
-            x, off, mask, w, _ = dcn_inputs(BATCH, hw, ci, co, dtype, gen, dev)
+            x, off, mask, w, _, r = dcn_inputs(BATCH, hw, ci, co, dtype, gen,
+                                               dev)
             g = torch.randn(BATCH, hw, hw, co, generator=gen, device=dev)
-            args = (x, off, mask, w, g)
+            args = (x, off, mask, w, g, r)
             got = deform_conv2d_backward_cuda(*args)
-            want = deform_conv2d_backward_reference(*args)
+            want = deform_conv2d_backward_reference(*args[:5])
             torch.cuda.synchronize()
             errs = {}
             for name, a, b in zip(BWD_OUTPUTS, got, want):
@@ -323,10 +392,14 @@ def check_backward_kernel(dev):
                 errs[name] = (err, err / max(1.0, float(b.float().abs().max())))
             tol = BWD_TOL[dtype]
             ms = cuda_ms(lambda: deform_conv2d_backward_cuda(*args), 20,
-                         l2_flush.zero_)
+                         l2_flush.zero_, LEAD_CYCLES)
+            nolead_ms = cuda_ms(lambda: deform_conv2d_backward_cuda(*args),
+                                20, l2_flush.zero_)
             plain_ms = cuda_ms(
-                lambda: deform_conv2d_backward_reference(*args), 5,
+                lambda: deform_conv2d_backward_reference(*args[:5]), 5,
                 l2_flush.zero_)
+            by_name = kernel_times(lambda: deform_conv2d_backward_cuda(*args),
+                                   5, l2_flush.zero_)
             bound_ms, bound_by, mem_ms = dcn_bwd_bound_ms(BATCH, hw, ci, co,
                                                           dtype)
             row = {
@@ -334,18 +407,20 @@ def check_backward_kernel(dev):
                 "dtype": str(dtype).replace("torch.", ""),
                 "layers": layers,
                 "max_abs_err": max(e for e, _ in errs.values()),
-                "max_rel_err": {k: r for k, (_, r) in errs.items()},
+                "max_rel_err": {k: e for k, (_, e) in errs.items()},
                 "tol": tol, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "memory_bound_ms": mem_ms,
+                "memory_bound_ms": mem_ms, "radius": r,
+                "by_kernel_ms": by_name, "nolead_ms": nolead_ms,
             }
             rows.append(row)
             print(f"{row['shape']:>24} {row['dtype']:>8} x{layers}: rel err "
-                  + " ".join(f"{k} {r:.1e}" for k, (_, r) in errs.items())
-                  + f" (tol {tol:.0e}); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
-                  f"({bound_by}; memory {1e3 * mem_ms:.2f} us)", flush=True)
-            bad = [k for k, (_, r) in errs.items() if r > tol]
+                  + " ".join(f"{k} {e:.1e}" for k, (_, e) in errs.items())
+                  + f" (tol {tol:.0e}); kernel {ms:.4f} ms (no lead "
+                  f"{nolead_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{1e3 * bound_ms:.2f} us ({bound_by}; memory {1e3 * mem_ms:.2f} us); by kernel: "
+                  f"{fmt_times(by_name)}", flush=True)
+            bad = [k for k, (_, e) in errs.items() if e > tol]
             if bad:
                 raise RuntimeError(f"backward kernel disagrees with the plain "
                                    f"version at {row['shape']} {row['dtype']} "
@@ -784,6 +859,12 @@ def main() -> int:
     print(json.dumps({"train": {
         "losses": losses, "grad_check": grad_check,
         "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
+    for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
+        bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
+        print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "
+              f"[constant, timed without the lead]): " + "; ".join(
+                  f"{r['shape']} ({r['ms']:.4f}, {r['nolead_ms']:.4f}, "
+                  f"{e:.4f})" for r, e in zip(bf16, EARLIER_MS[name].values())))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

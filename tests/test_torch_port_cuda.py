@@ -8,10 +8,12 @@ the port and this file do not need):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Shapes are dla_34's 16 DCN layers at a 512x512 input, batch 2, in bf16 and
+Shapes are dla_34's 16 DCN layers at a 512x512 input, batch 2 (and 8 and 16
+at 128x128, where the backward's split over the pixels changes), in bf16 and
 f32, with offsets drawn across +-(r+1), clamped as the module clamps them and
-some exactly on -r and r - 1/64. Tolerances, as max |got - want| over
-max(1, max |want|):
+some exactly on -r and r - 1/64; every call passes the clamp radius r, which
+sizes the window of x that the kernels stage. Tolerances, as max |got -
+want| over max(1, max |want|):
 
 * forward: f32 1e-4 (exact f32 products summed in another order, up to
   9*512 terms); bf16 1e-2 (both sides round each sampled value to bf16,
@@ -50,10 +52,16 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(b, hw, ci, co, dtype, dev, seed):
-    from centernet_tpu_torch.ops.dcn import CLIP_EPS, dcn_radius
+def _radius(hw):
+    from centernet_tpu_torch.ops.dcn import dcn_radius
 
-    r = dcn_radius(hw, hw)
+    return dcn_radius(hw, hw)
+
+
+def _inputs(b, hw, ci, co, dtype, dev, seed):
+    from centernet_tpu_torch.ops.dcn import CLIP_EPS
+
+    r = _radius(hw)
     g = torch.Generator(device=dev).manual_seed(seed)
     kw = {"generator": g, "device": dev}
     x = torch.randn(b, hw, hw, ci, **kw).to(dtype)
@@ -78,7 +86,7 @@ def test_kernel_matches_plain(dev, shape, dtype):
     hw, ci, co = shape
     args = _inputs(2, hw, ci, co, dtype, dev, seed=hw + ci + co)
     before = launch_counts["dcn_fwd"]
-    got = deform_conv2d(*args)
+    got = deform_conv2d(*args, radius=_radius(hw))
     assert launch_counts["dcn_fwd"] == before + 1
     want = deform_conv2d_reference(*args)
     torch.cuda.synchronize()
@@ -110,7 +118,7 @@ def test_kernel_matches_plain_at_ragged_edges(dev, shape, dtype):
     mask = torch.rand(b, h, w, 9, **kw)
     wt = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
     bias = torch.randn(co, **kw)
-    got = deform_conv2d(x, off, mask, wt, bias)
+    got = deform_conv2d(x, off, mask, wt, bias, radius=r)
     want = deform_conv2d_reference(x, off, mask, wt, bias)
     torch.cuda.synchronize()
     scale = max(1.0, float(want.abs().max()))
@@ -122,15 +130,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
     x, off, mask, w, bias = _inputs(1, 8, 16, 16, torch.float32, dev, 0)
     with pytest.raises(TypeError):
-        deform_conv2d_cuda(x.half(), off, mask, w.half(), bias)
+        deform_conv2d_cuda(x.half(), off, mask, w.half(), bias, 4)
     with pytest.raises(ValueError):
-        deform_conv2d_cuda(x, off[..., :9], mask, w, bias)
+        deform_conv2d_cuda(x, off[..., :9], mask, w, bias, 4)
     with pytest.raises(ValueError):
-        deform_conv2d_cuda(x.transpose(1, 2), off, mask, w, bias)
+        deform_conv2d_cuda(x.transpose(1, 2), off, mask, w, bias, 4)
+    with pytest.raises(ValueError, match="radius"):
+        deform_conv2d_cuda(x, off, mask, w, bias, 0)
+    # a window that does not fit in shared memory is refused, not cut
+    with pytest.raises(ValueError, match="shared memory"):
+        deform_conv2d_cuda(x, off, mask, w, bias, 40)
     # bf16 moves channels as 8-wide vectors: Ci = 12 is refused
     xb = x[..., :12].contiguous().bfloat16()
     with pytest.raises(ValueError, match="divisible by 8"):
-        deform_conv2d_cuda(xb, off, mask, w[:9 * 12].bfloat16(), bias)
+        deform_conv2d_cuda(xb, off, mask, w[:9 * 12].bfloat16(), bias, 4)
 
 
 def _rel_err(got, want):
@@ -161,7 +174,7 @@ def test_backward_kernel_matches_plain(dev, shape, dtype):
     g = torch.randn(2, hw, hw, co, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(co))
     before = launch_counts["dcn_bwd"]
-    got = deform_conv2d_backward(x, off, mask, w, g)
+    got = deform_conv2d_backward(x, off, mask, w, g, radius=_radius(hw))
     assert launch_counts["dcn_bwd"] == before + 1
     want = deform_conv2d_backward_reference(x, off, mask, w, g)
     torch.cuda.synchronize()
@@ -190,7 +203,7 @@ def test_backward_kernel_matches_plain_at_ragged_edges(dev, shape, dtype):
     mask = torch.rand(b, h, w, 9, **kw)
     wt = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
     g = torch.randn(b, h, w, co, **kw)
-    got = deform_conv2d_backward(x, off, mask, wt, g)
+    got = deform_conv2d_backward(x, off, mask, wt, g, radius=r)
     want = deform_conv2d_backward_reference(x, off, mask, wt, g)
     torch.cuda.synchronize()
     _assert_backward_close(got, want, dtype, shape)
@@ -215,7 +228,7 @@ def test_autograd_pairs_the_forward_and_backward_kernels(dev, dtype):
     w32 = torch.randn(9 * ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
     g = torch.randn(2, hw, hw, co, generator=gen, device=dev)
 
-    def run(device):
+    def run(device):  # the function hands ``r`` to both kernels
         leaves = [t.detach().to(device).requires_grad_()
                   for t in (x, off, mask, w32, bias)]
         out = DeformConv2dFunction.apply(*leaves, r)
@@ -238,3 +251,96 @@ def test_autograd_pairs_the_forward_and_backward_kernels(dev, dtype):
         assert err <= tol, f"{name}: {err:.3e}"
     # the clamp's pass-through: raw offsets beyond the bounds get nothing
     assert float(got[2][off.abs() > r].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("batch", [8, 16])
+def test_kernels_match_plain_at_larger_batches(dev, batch, dtype):
+    """128x128 C64 at the batches where the pixel count changes the dW
+    launch's split over the tiles and the forward's blocks per SM."""
+    from centernet_tpu_torch.ops.dcn import (deform_conv2d,
+                                             deform_conv2d_backward,
+                                             deform_conv2d_backward_reference,
+                                             deform_conv2d_reference)
+
+    hw, ci, co = 128, 64, 64
+    r = _radius(hw)
+    x, off, mask, w, bias = _inputs(batch, hw, ci, co, dtype, dev, seed=batch)
+    got = deform_conv2d(x, off, mask, w, bias, radius=r)
+    want = deform_conv2d_reference(x, off, mask, w, bias)
+    assert _rel_err(got, want) <= TOL[dtype]
+    del got, want
+    g = torch.randn(batch, hw, hw, co, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(batch))
+    got = deform_conv2d_backward(x, off, mask, w, g, radius=r)
+    want = deform_conv2d_backward_reference(x, off, mask, w, g)
+    torch.cuda.synchronize()
+    _assert_backward_close(got, want, dtype, (batch, hw, ci, co))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("edge", ["low", "high"])
+@pytest.mark.parametrize("shape", [(128, 64, 64), (32, 256, 128)],
+                         ids=lambda s: f"{s[0]}x{s[0]}_C{s[1]}-{s[2]}")
+def test_kernels_match_plain_with_offsets_on_the_window_edge(dev, shape, edge,
+                                                             dtype):
+    """Every offset exactly on -r, or on r - 1/64: each sample's corners lie
+    on the outermost cells of the staged window."""
+    from centernet_tpu_torch.ops.dcn import (CLIP_EPS, deform_conv2d,
+                                             deform_conv2d_backward,
+                                             deform_conv2d_backward_reference,
+                                             deform_conv2d_reference)
+
+    hw, ci, co = shape
+    r = _radius(hw)
+    x, off, mask, w, bias = _inputs(2, hw, ci, co, dtype, dev, seed=ci)
+    off.fill_(-float(r) if edge == "low" else r - CLIP_EPS)
+    got = deform_conv2d(x, off, mask, w, bias, radius=r)
+    want = deform_conv2d_reference(x, off, mask, w, bias)
+    assert _rel_err(got, want) <= TOL[dtype]
+    g = torch.randn(2, hw, hw, co, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(co))
+    got = deform_conv2d_backward(x, off, mask, w, g, radius=r)
+    want = deform_conv2d_backward_reference(x, off, mask, w, g)
+    torch.cuda.synchronize()
+    _assert_backward_close(got, want, dtype, (shape, edge))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_offsets_beyond_the_radius_stay_in_bounds(dev, dtype):
+    """Offsets the caller failed to clamp give a defined, finite result (the
+    sample is cut at the staged window), not a fault."""
+    from centernet_tpu_torch.ops.dcn import (deform_conv2d,
+                                             deform_conv2d_backward)
+
+    hw, ci, co = 32, 64, 64
+    x, off, mask, w, bias = _inputs(2, hw, ci, co, dtype, dev, seed=3)
+    off = off * 20.0
+    got = deform_conv2d(x, off, mask, w, bias, radius=2)
+    g = torch.randn_like(got)
+    grads = deform_conv2d_backward(x, off, mask, w, g, radius=2)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in (got, *grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_backward_differs_from_run_to_run_within_tolerance(dev, dtype):
+    """dx, dW and (with several channel chunks) the offset and mask
+    gradients are summed by atomics, whose order changes between runs: two
+    calls on one input differ by far less than the gate against the plain
+    version."""
+    from centernet_tpu_torch.ops.dcn import deform_conv2d_backward
+
+    hw, ci, co = 64, 128, 128
+    x, off, mask, w, _ = _inputs(2, hw, ci, co, dtype, dev, seed=11)
+    g = torch.randn(2, hw, hw, co, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(12))
+    first = deform_conv2d_backward(x, off, mask, w, g, radius=_radius(hw))
+    second = deform_conv2d_backward(x, off, mask, w, g, radius=_radius(hw))
+    torch.cuda.synchronize()
+    for name, a, b in zip(BWD_NAMES, first, second):
+        assert _rel_err(a, b) <= BWD_TOL[dtype] / 10, name

@@ -80,9 +80,26 @@ def test_reference_matches_jax_banded_and_gather(case):
     exact = np.asarray(dcn_v2(*jargs))
     _close(got, banded)
     _close(got, exact)
-    # the public entry routes a CPU tensor to the same plain version
-    routed = tdcn.deform_conv2d(*(torch.from_numpy(a) for a in args)).numpy()
+    # the public entry, handed the clamp radius as ``pallas_deform_conv_fwd``
+    # is, routes a CPU tensor to the same plain version
+    routed = tdcn.deform_conv2d(*(torch.from_numpy(a) for a in args),
+                                radius=r).numpy()
     np.testing.assert_array_equal(routed, got)
+
+
+def test_plain_forward_ignores_the_radius():
+    """The radius only sizes the window the CUDA kernel stages; the plain
+    version samples exactly, so offsets beyond the radius it is told still
+    give ``dcn_v2``'s result."""
+    b, h, w, ci, co, r = CASES[0]
+    args = _inputs(b, h, w, ci, co, r, seed=77)
+    targs = [torch.from_numpy(a) for a in args]
+    exact = np.asarray(dcn_v2(*(jnp.asarray(a) for a in args)))
+    for told in (1, 2, r, 9):
+        got = tdcn.deform_conv2d(*targs, radius=told).numpy()
+        _close(got, exact)
+        np.testing.assert_array_equal(
+            got, tdcn.deform_conv2d(*targs).numpy())
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[1]}x{c[2]}")

@@ -77,10 +77,24 @@ def test_backward_reference_matches_jax_vjp(case):
     _close(dmask.numpy(), want[2], "dmask")
     _close(dw.numpy(), want[3], "dweight")
     _close(case["g"].sum((0, 1, 2)), want[4], "dbias")
-    # the public entry routes CPU tensors to the same plain version
-    routed = tdcn.deform_conv2d_backward(x, off, mask, w, g)
+    # the public entry, handed the clamp radius as ``pallas_deform_conv_bwd``
+    # is, routes CPU tensors to the same plain version
+    routed = tdcn.deform_conv2d_backward(x, off, mask, w, g,
+                                         radius=case["r"])
     for a, b in zip(routed, (dx, dty, dtx, dmask, dw)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_plain_backward_ignores_the_radius(case):
+    """The radius only sizes the windows the CUDA kernel stages: whatever
+    radius the plain version is told, it returns the same cotangents."""
+    x, off, mask, w, _ = (torch.from_numpy(a) for a in case["args"])
+    g = torch.from_numpy(case["g"])
+    want = tdcn.deform_conv2d_backward_reference(x, off, mask, w, g)
+    for told in (1, case["r"], 9):
+        got = tdcn.deform_conv2d_backward(x, off, mask, w, g, radius=told)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 def test_autograd_of_plain_forward_matches_jax_vjp(case):
