@@ -1,1 +1,38 @@
-"""Data helpers of the PyTorch port (host-side, numpy)."""
+"""Data pipeline of the PyTorch port: transforms, target encoding, the COCO
+dataset and the host loader (numpy; the loader's workers never touch CUDA)."""
+
+from .sample import PaddedAnnotationSample, encode_detection, pad_annotations
+from .transforms import (
+    AffineAugmenter,
+    CategoryIdToClass,
+    ComposeSample,
+    Fliplr,
+    Identity,
+    ImageAugmentation,
+    MultiSampleTransform,
+    Normalize,
+    PoseFlip,
+    detection_train_augmenter,
+    eval_augmenter,
+    pose_train_augmenter,
+    seed,
+)
+
+__all__ = [
+    "PaddedAnnotationSample",
+    "encode_detection",
+    "pad_annotations",
+    "AffineAugmenter",
+    "CategoryIdToClass",
+    "ComposeSample",
+    "Fliplr",
+    "Identity",
+    "ImageAugmentation",
+    "MultiSampleTransform",
+    "Normalize",
+    "PoseFlip",
+    "detection_train_augmenter",
+    "eval_augmenter",
+    "pose_train_augmenter",
+    "seed",
+]

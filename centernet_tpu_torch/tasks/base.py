@@ -3,15 +3,19 @@
 * ``CenterNetModel``: backbone + one ``CenterHead`` per supervision stack, an
   ``nn.Module`` on NCHW channels_last tensors.
 * ``CenterNet``: the task. It owns the model on an explicit device, the arch
-  constants, the on-device uint8 normalisation, the valid-region mask, the
-  on-device target encoding and the optimizer (Adam + MultiStep LR). Its
-  entry points take NHWC images, as the JAX package's do. The model is in
-  ``eval()`` mode except inside a train step.
+  constants, its hyperparameters for checkpoint sidecars (``hparams``), the
+  on-device uint8 normalisation, the fixed-shape eval geometry
+  (``prepare_image_fixed``), the valid-region mask, the on-device target
+  encoding and the optimizer (Adam + MultiStep LR). Its entry points take
+  NHWC images, as the JAX package's do. The model is in ``eval()`` mode
+  except inside a train step.
+* ``resize_bilinear``: ``jax.image.resize(..., "bilinear")`` in PyTorch,
+  antialiased when it shrinks, which ``F.interpolate`` is not.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +48,43 @@ def resolve_device(device=None) -> torch.device:
                 "PyTorch path on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """[in_size, out_size] f32 weights of a triangle-kernel resize, as
+    ``jax.image.scale_and_translate`` computes them (``compute_weight_mat``,
+    translation 0, antialias on): when shrinking, the kernel is widened by
+    the inverse scale, so each output averages every input it covers."""
+    f32 = torch.float32
+    inv_scale = torch.tensor(in_size / out_size, dtype=f32, device=device)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=f32, device=device)
+         [:, None]).abs() / kernel_scale
+    weights = torch.clamp(1.0 - x, min=0.0)
+    total = weights.sum(0, keepdim=True)
+    eps = float(np.finfo(np.float32).eps)
+    weights = torch.where(total.abs() > 1000.0 * eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """HWC f32 image -> ``out_hw``, as ``jax.image.resize(img, (*out_hw, C),
+    "bilinear")``: a side that keeps its size is left alone, the others are
+    contracted with their weight matrices on ``img``'s device."""
+    h, w = img.shape[:2]
+    out_h, out_w = out_hw
+    if out_h != h:
+        img = torch.einsum("hwc,hH->Hwc", img,
+                           _resize_weights(h, out_h, img.device))
+    if out_w != w:
+        img = torch.einsum("hwc,wW->hWc", img,
+                           _resize_weights(w, out_w, img.device))
+    return img
 
 
 class CenterNetModel(nn.Module):
@@ -110,6 +151,17 @@ class CenterNet:
         self._norm_scale = torch.from_numpy(scale).to(self.device)
         self._norm_bias = torch.from_numpy(bias).to(self.device)
 
+    def hparams(self) -> Dict[str, Any]:
+        """What rebuilds this task from a checkpoint alone (``tasks.
+        task_from_hparams``), the keys of the JAX package's; load-time
+        choices (TTA, dtype, device) are not kept."""
+        return {
+            "task": type(self).__name__,
+            "arch": self.arch,
+            "learning_rate": self.learning_rate,
+            "learning_rate_milestones": self.learning_rate_milestones,
+        }
+
     def train(self, mode: bool = True) -> "CenterNet":
         """Put the model in train mode (batch statistics, autograd-recorded
         casts) or back in eval mode."""
@@ -162,6 +214,38 @@ class CenterNet:
                         for m in self.learning_rate_milestones})
         schedule = torch.optim.lr_scheduler.MultiStepLR(adam, steps, gamma=0.1)
         return Optimizer(adam, schedule)
+
+    def host_image(self, img_hwc) -> torch.Tensor:
+        """An HWC image (numpy, any strides, or a tensor) as f32 on the
+        task's device."""
+        if isinstance(img_hwc, np.ndarray):
+            img_hwc = np.ascontiguousarray(img_hwc, np.float32)
+        return torch.as_tensor(img_hwc, dtype=torch.float32).to(self.device)
+
+    def normalize(self, img: torch.Tensor) -> torch.Tensor:
+        """(img - mean) / std in f32 on the task's device; ``img`` is BGR in
+        [0, 1]."""
+        mean = torch.tensor(self.mean, dtype=torch.float32, device=img.device)
+        std = torch.tensor(self.std, dtype=torch.float32, device=img.device)
+        return (img - mean) / std
+
+    def prepare_image_fixed(self, img_hwc, size: int = 512):
+        """Resize the longer side to ``size`` and centre-pad to ``size`` x
+        ``size`` (the reference's validation geometry,
+        centernet_detection.py:317-341), so that images batch. ``img_hwc`` is
+        BGR float in [0, 1]. Returns (image [size, size, 3] normalised, on the
+        task's device; meta for undoing: ``scale``, ``padding``)."""
+        h, w = img_hwc.shape[:2]
+        scale = size / max(h, w)
+        new_h, new_w = round(h * scale), round(w * scale)
+        img = resize_bilinear(self.host_image(img_hwc), (new_h, new_w))
+        pad_t = (size - new_h) // 2
+        pad_l = (size - new_w) // 2
+        img = torch.nn.functional.pad(
+            img, (0, 0, pad_l, size - new_w - pad_l, pad_t,
+                  size - new_h - pad_t))
+        meta = {"scale": [new_w / w, new_h / h], "padding": [pad_l, pad_t]}
+        return self.normalize(img), meta
 
     @staticmethod
     def _mask_valid_region(hm_sig: torch.Tensor,

@@ -34,15 +34,29 @@ raises and the script exits non-zero without printing a result:
    against the same step on the CPU (plain path), gradient by gradient;
 8. train timing: train-step images/s at batch 4 and 8 (CUDA events), host
    enqueue, device busy, top kernels, the DCN kernels' in-step time, peak
-   memory.
+   memory;
+9. CLI slice: a seeded mini-COCO (16 train, 8 val images at COCO sizes,
+   written with cv2 or PIL, else served from memory) in a temporary
+   directory; ``cli.detection`` trains dla_34 at 512x512 bf16 for 3 steps
+   of 4 images (checkpoint, sidecar, metrics.jsonl), then resumes for one
+   more epoch in forked loader workers (the epoch, step and learning rate
+   continue); ``cli.test`` evaluates the checkpoint over 4 val images with
+   flip, flip + multi-scale and batched. Each run must launch 16 dcn_fwd
+   per forward and 16 dcn_bwd per step. Both kernels are held against
+   their plain versions at every DCN shape the TTA met (batch 2; bf16, and
+   f32 at two); the flip TTA of one image on the card in bf16 against the
+   CPU in f32; numbers: train images/s from the epoch log, ms per image of
+   both TTA modes with the device's busy share, batched images/s.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
+A watchdog ends a run that hangs after WATCHDOG_S seconds, with a
+traceback. The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
 import collections
+import faulthandler
 import json
 import statistics
 import subprocess
@@ -126,6 +140,7 @@ KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_fwd.cu"
 BWD_KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:414"
 BWD_KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_bwd.cu"
 DEVICE = "cuda"
+WATCHDOG_S = 1100
 
 
 def phase(name: str) -> None:
@@ -250,19 +265,26 @@ def fmt_times(times: dict) -> str:
         times.items(), key=lambda kv: -kv[1]))
 
 
+def side(hw):
+    """(H, W) of a map given as its side or as (H, W)."""
+    return (hw, hw) if isinstance(hw, int) else tuple(hw)
+
+
 def dcn_inputs(b, hw, ci, co, dtype, gen, dev):
-    """Seeded kernel inputs; offsets drawn across +-(r+1), clamped as the
-    module clamps them, with some exactly on -r and r - CLIP_EPS."""
+    """Seeded kernel inputs on an ``hw`` map (a side or (H, W)); offsets
+    drawn across +-(r+1), clamped as the module clamps them, with some
+    exactly on -r and r - CLIP_EPS."""
     from centernet_tpu_torch.ops.dcn import CLIP_EPS, dcn_radius
 
-    r = dcn_radius(hw, hw)
+    h, w = side(hw)
+    r = dcn_radius(h, w)
     kw = {"generator": gen, "device": dev}
-    x = torch.randn(b, hw, hw, ci, **kw).to(dtype)
-    off = (torch.rand(b, hw, hw, 18, **kw) * 2 - 1) * (r + 1)
+    x = torch.randn(b, h, w, ci, **kw).to(dtype)
+    off = (torch.rand(b, h, w, 18, **kw) * 2 - 1) * (r + 1)
     off = off.clamp(-r, r - CLIP_EPS)
     off.view(-1)[::7] = -r
     off.view(-1)[3::11] = r - CLIP_EPS
-    mask = torch.rand(b, hw, hw, 9, **kw)
+    mask = torch.rand(b, h, w, 9, **kw)
     w = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
     bias = torch.randn(co, **kw) * 0.1
     return x, off, mask, w, bias, r
@@ -275,7 +297,7 @@ def dcn_bound_ms(b, hw, ci, co, dtype):
     value) at the f32 peak. Returns (ms, "bytes" or "operations", the bytes'
     time alone in ms)."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    pix = b * hw * hw
+    pix = b * side(hw)[0] * side(hw)[1]
     nbytes = (pix * ci * esize + pix * 27 * 4 + 9 * ci * co * esize + co * 4
               + pix * co * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -355,7 +377,7 @@ def dcn_bwd_bound_ms(b, hw, ci, co, dtype):
     its two coordinate derivatives, the dx scatter and the three Ci sums) at
     the f32 peak. Returns (ms, "bytes" or "operations", the bytes' time)."""
     esize = torch.tensor([], dtype=dtype).element_size()
-    pix = b * hw * hw
+    pix = b * side(hw)[0] * side(hw)[1]
     nbytes = (2 * pix * ci * esize + 2 * pix * 27 * 4 + pix * co * 4
               + 9 * ci * co * (esize + 4))
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -676,6 +698,471 @@ def decode_at(heads, peaks):
                         cx + wh[:, 0] / 2, cy + wh[:, 1] / 2, score], 1)
 
 
+# ---------------------------------------------------------------- phase 9 ---
+
+# The mini-COCO of phase 9: COCO-like sizes (w, h), 2-6 boxes per image over
+# COCO category ids.
+MINI_SIZES = [(640, 480), (480, 640), (640, 427), (500, 375)]
+MINI_TRAIN, MINI_VAL, MINI_EVAL = 16, 8, 4
+MINI_CATEGORIES = [1, 2, 3, 18, 44, 62, 72, 90]
+CLI_STEPS = 3
+# The smallest val image: the card-vs-CPU predict (an f32 flip pair of its
+# 384x512 TTA input on the CPU).
+CPU_CHECK_IMAGE = 3
+
+
+def image_codec():
+    """The image writer and reader the machine has: cv2, else PIL, else
+    None."""
+    try:
+        import cv2  # noqa: F401
+
+        return "cv2"
+    except ImportError:
+        pass
+    try:
+        import PIL  # noqa: F401
+
+        return "PIL"
+    except ImportError:
+        return None
+
+
+def make_mini_coco(root, codec):
+    """Seeded mini-COCO under ``root``: images/{train,val}2017, annotations/
+    instances_{train,val}2017.json, and annotations_eval/ with the first
+    MINI_EVAL val images. With a codec the images are written as PNG;
+    without one they are returned, keyed by (split, id), for
+    ``InMemoryCocoDetection``. Returns (image_root, ann_root, eval_ann_root,
+    images or None)."""
+    import os
+
+    rng = np.random.default_rng(SEED + 9)
+    kept = {}
+    image_root = os.path.join(root, "images")
+    ann_root = os.path.join(root, "annotations")
+    eval_root = os.path.join(root, "annotations_eval")
+    for d in (ann_root, eval_root):
+        os.makedirs(d)
+    for split, n in (("train2017", MINI_TRAIN), ("val2017", MINI_VAL)):
+        os.makedirs(os.path.join(image_root, split))
+        images, anns = [], []
+        for i in range(n):
+            w, h = MINI_SIZES[i % len(MINI_SIZES)]
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            name = f"{i:012d}.png"
+            path = os.path.join(image_root, split, name)
+            if codec == "cv2":
+                import cv2
+
+                cv2.imwrite(path, np.ascontiguousarray(img[..., ::-1]))
+            elif codec == "PIL":
+                from PIL import Image
+
+                Image.fromarray(img).save(path)
+            else:
+                kept[(split, i)] = img
+            images.append({"id": i, "file_name": name, "width": w,
+                           "height": h})
+            for _ in range(int(rng.integers(2, 7))):
+                bw, bh = rng.uniform(0.1, 0.5) * w, rng.uniform(0.1, 0.5) * h
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append({
+                    "id": len(anns) + 1, "image_id": i,
+                    "category_id": int(rng.choice(MINI_CATEGORIES)),
+                    "bbox": [float(x), float(y), float(bw), float(bh)],
+                    "area": float(bw * bh), "iscrowd": 0})
+        cats = [{"id": c, "name": f"category {c}"} for c in MINI_CATEGORIES]
+        coco = {"images": images, "annotations": anns, "categories": cats}
+        with open(os.path.join(ann_root, f"instances_{split}.json"), "w") as f:
+            json.dump(coco, f)
+        if split == "val2017":
+            few = {"images": images[:MINI_EVAL], "categories": cats,
+                   "annotations": [a for a in anns
+                                   if a["image_id"] < MINI_EVAL]}
+            with open(os.path.join(eval_root, "instances_val2017.json"),
+                      "w") as f:
+                json.dump(few, f)
+    return image_root, ann_root, eval_root, (kept or None)
+
+
+def in_memory_coco(images):
+    """A CocoDetection whose ``_load_image`` returns the seeded images in
+    memory, for a machine with neither cv2 nor PIL."""
+    import os
+
+    from centernet_tpu_torch.data.coco import CocoDetection
+
+    class InMemoryCocoDetection(CocoDetection):
+        def _load_image(self, img_id):
+            return images[(os.path.basename(self.root), img_id)]
+
+    return InMemoryCocoDetection
+
+
+def dcn_call_hook(seen):
+    """A global forward pre-hook counting every DCN call by (B, H, W, Ci,
+    Co), whichever task runs it."""
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from centernet_tpu_torch.ops.dcn import DCN
+
+    def pre(mod, inp):
+        if isinstance(mod, DCN):
+            b, ci, h, w = inp[0].shape
+            seen[(b, h, w, ci, mod.weight.shape[0])] += 1
+
+    return register_module_forward_pre_hook(pre)
+
+
+def counted(fn, seen):
+    """Run ``fn`` with the DCN launch counts set to 0 and every DCN call
+    recorded in ``seen``; returns (fn's result, seconds, launches)."""
+    from centernet_tpu_torch.ops import dcn_cuda
+
+    handle = dcn_call_hook(seen)
+    dcn_cuda.launch_counts.clear()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    secs = time.perf_counter() - t0
+    return out, secs, {k: dcn_cuda.launch_counts[k]
+                       for k in ("dcn_fwd", "dcn_bwd")}
+
+
+def expect_launches(run, launches, fwd, bwd):
+    print(f"{run}: dcn_fwd {launches['dcn_fwd']}, dcn_bwd "
+          f"{launches['dcn_bwd']} launches (want {fwd}, {bwd})")
+    if (launches["dcn_fwd"], launches["dcn_bwd"]) != (fwd, bwd):
+        raise RuntimeError(f"{run}: the DCN layers did not all run on the "
+                           f"kernels: {launches}, want {fwd} and {bwd}")
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_kernels_at_shapes(shapes, dev):
+    """Both kernels against their plain versions at every (H, W, Ci, Co)
+    in ``shapes``, batch 2, bf16 (and f32 at the first two), at phase 3's
+    and phase 6's tolerances; the bf16 forward's time there (cold L2, with
+    the lead) and its bound. Returns ({shape: row}, the largest absolute
+    error of each kernel)."""
+    from centernet_tpu_torch.ops.dcn import (deform_conv2d_backward_reference,
+                                             deform_conv2d_reference)
+    from centernet_tpu_torch.ops.dcn_cuda import (deform_conv2d_backward_cuda,
+                                                  deform_conv2d_cuda)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    out_err = {"fwd": 0.0, "bwd": 0.0}
+    for n, (h, w, ci, co) in enumerate(shapes):
+        for dtype in ((torch.bfloat16, torch.float32) if n < 2
+                      else (torch.bfloat16,)):
+            x, off, mask, wt, bias, r = dcn_inputs(2, (h, w), ci, co, dtype,
+                                                   gen, dev)
+            g = torch.randn(2, h, w, co, generator=gen, device=dev)
+            got = deform_conv2d_cuda(x, off, mask, wt, bias, r)
+            want = deform_conv2d_reference(x, off, mask, wt, bias)
+            got_b = deform_conv2d_backward_cuda(x, off, mask, wt, g, r)
+            want_b = deform_conv2d_backward_reference(x, off, mask, wt, g)
+            torch.cuda.synchronize()
+            errs = {"out": (got, want)}
+            errs.update(zip(BWD_OUTPUTS, zip(got_b, want_b)))
+            rel, worst = {}, {"fwd": 0.0, "bwd": 0.0}
+            for name, (a, b) in errs.items():
+                if not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"non-finite {name} at {h}x{w} "
+                                       f"C{ci}->{co} {dtype}")
+                e = float((a.float() - b.float()).abs().max())
+                which = "fwd" if name == "out" else "bwd"
+                worst[which] = max(worst[which], e)
+                rel[name] = e / max(1.0, float(b.float().abs().max()))
+            bad = [k for k, e in rel.items()
+                   if e > (KERNEL_TOL if k == "out" else BWD_TOL)[dtype]]
+            if bad:
+                raise RuntimeError(f"kernels disagree with the plain versions "
+                                   f"at B2 {h}x{w} C{ci}->{co} {dtype} in "
+                                   f"{bad}: {rel}")
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(lambda: deform_conv2d_cuda(x, off, mask, wt, bias,
+                                                        r), 10,
+                             l2_flush.zero_, LEAD_CYCLES)
+                bound, by, _ = dcn_bound_ms(2, (h, w), ci, co, dtype)
+                rows[(h, w, ci, co)] = {"ms": ms, "bound_ms": bound,
+                                        "bound_by": by, "radius": r}
+            for which, e in worst.items():
+                out_err[which] = max(out_err[which], e)
+            print(f"B2 {h:>3}x{w:<3} C{ci}->{co} "
+                  f"{str(dtype).replace('torch.', ''):>8}: rel err "
+                  + " ".join(f"{k} {e:.1e}" for k, e in rel.items())
+                  + (f"; fwd {rows[(h, w, ci, co)]['ms']:.4f} ms, bound "
+                     f"{1e3 * rows[(h, w, ci, co)]['bound_ms']:.2f} us"
+                     if dtype == torch.bfloat16 else ""), flush=True)
+            del x, off, mask, wt, bias, g, got, want, got_b, want_b
+    del l2_flush
+    torch.cuda.empty_cache()
+    return rows, out_err
+
+
+def flip_heads(task, img_bgr01):
+    """The flip-averaged heads ``predict`` decodes at scale 1: the image and
+    its mirror through the model, the mirror's maps flipped back."""
+    images, meta = task.prepare_image(img_bgr01, 1.0)
+    out = task.apply(torch.cat([images, images.flip(2)], 0))[-1]
+    return {k: ((v[0:1] + v[1:2].flip(2)) / 2.0 if k != "regression"
+                else v[0:1]).float().cpu() for k, v in out.items()}, meta
+
+
+def check_tta_card_vs_cpu(ckpt_state, img_bgr01):
+    """One val image through the flip TTA at scale 1: the card's bf16 task
+    against the same weights in f32 on the CPU, at phase 4's peak
+    tolerances: the flip-averaged heads, and each side's top-10 peaks
+    decoded from both sides' heads. Both ``predict`` results are finite."""
+    from centernet_tpu_torch.ops.decode import pseudo_nms, topk
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    tasks = {}
+    for name, dev, dtype in (("card", DEVICE, torch.bfloat16),
+                             ("CPU", "cpu", torch.float32)):
+        t = CenterNetDetection("dla_34", dtype=dtype, device=dev,
+                               test_flip=True)
+        t.model.load_state_dict(ckpt_state)
+        seed_weights(t.model, SEED + 1)  # the same draw on both sides
+        tasks[name] = t
+    heads = {}
+    for name, t in tasks.items():
+        t0 = time.perf_counter()
+        heads[name], meta = flip_heads(t, img_bgr01)
+        res = t.predict(img_bgr01)
+        dets = np.concatenate(list(res.values()), 0)
+        if not np.isfinite(dets).all() or not 0 < len(dets) <= 100:
+            raise RuntimeError(f"{name} predict gave {dets.shape}")
+        print(f"{name}: flip predict of one {img_bgr01.shape[1]}x"
+              f"{img_bgr01.shape[0]} image (input "
+              f"{tuple(heads[name]['heatmap'].shape[1:3])} cells x 4) gave "
+              f"{len(dets)} detections, {time.perf_counter() - t0:.1f} s")
+    for k in ("heatmap", "width_height", "regression"):
+        e = rel_err(heads["card"][k], heads["CPU"][k])
+        print(f"flip-averaged head {k}: card bf16 vs CPU f32 rel err {e:.3e} "
+              f"(tol {HEADS_TOL:.0e})")
+        if e > HEADS_TOL:
+            raise RuntimeError(f"TTA head {k} disagrees: {e:.3e}")
+    valid = torch.tensor([meta["valid_hw"]])
+    for side_, h in heads.items():
+        hm = tasks["CPU"]._mask_valid_region(torch.sigmoid(h["heatmap"]),
+                                             valid)
+        peaks = topk(pseudo_nms(hm), k=10)
+        mine = decode_at(h, peaks)
+        other = decode_at(heads["CPU" if side_ == "card" else "card"], peaks)
+        box_err = float((mine[:, :4] - other[:, :4]).abs().max())
+        score_err = float((mine[:, 4] - other[:, 4]).abs().max())
+        print(f"the {side_}'s top-10 TTA peaks decoded from both sides' "
+              f"heads: box err {box_err:.3e} cells (tol {BOX_TOL}), score "
+              f"err {score_err:.3e} (tol {SCORE_TOL})")
+        if box_err > BOX_TOL or score_err > SCORE_TOL:
+            raise RuntimeError(f"the {side_}'s TTA detections disagree")
+
+
+def run_cli_slice(dev, card):
+    """Phase 9: the CLIs on a seeded mini-COCO: train 3 steps, resume for
+    one more epoch in forked loader workers, evaluate the checkpoint with
+    flip, flip + multi-scale and batched; the DCN launches of each run, the
+    kernels against their plain versions at every DCN shape TTA met, the
+    card against the CPU through the flip TTA, and the numbers."""
+    import os
+    import tempfile
+
+    from centernet_tpu_torch.cli import detection as cli_det
+    from centernet_tpu_torch.cli import test as cli_tst
+    from centernet_tpu_torch.data import transforms as T
+    from centernet_tpu_torch.tasks import task_from_hparams
+    from centernet_tpu_torch.parallel.trainer import Trainer
+    from centernet_tpu_torch.utils.checkpoint import (load_checkpoint_hparams,
+                                                      restore_checkpoint)
+
+    codec = image_codec()
+    print(f"image codec: {codec or 'none'}; transforms: "
+          + ("cv2 warpAffine (bilinear), Gaussian blur"
+             if T.cv2 is not None else "numpy nearest warp, no blur"))
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coco_") as root:
+        image_root, ann_root, eval_root, kept = make_mini_coco(root, codec)
+        if kept is not None:
+            cls = in_memory_coco(kept)
+            cli_det.CocoDetection = cli_tst.CocoDetection = cls
+            print("no image codec: CocoDetection reads the same seeded "
+                  "images from memory (InMemoryCocoDetection._load_image); "
+                  "everything after the image read is unchanged")
+        runs = os.path.join(root, "runs")
+        common = [image_root, ann_root, "--arch", "dla_34", "--input_size",
+                  str(HW), "--batch_size", str(BATCH), "--precision", "bf16",
+                  "--limit_train_batches", str(CLI_STEPS),
+                  "--limit_val_batches", "1", "--num_workers", "2",
+                  "--learning_rate_milestones", "1", "--skip_test",
+                  "--default_root_dir", runs]
+        seen_train = collections.Counter()
+        trainer, secs, launches = counted(lambda: cli_det.cli_main(
+            common + ["--max_epochs", "1", "--worker_mode", "thread"]),
+            seen_train)
+        expect_launches("cli train (3 steps + 1 val batch)", launches,
+                        16 * (CLI_STEPS + 1), 16 * CLI_STEPS)
+        out["launches"]["cli_train"] = launches
+        last = os.path.join(runs, "checkpoints", "last")
+        log = os.path.join(runs, "tb_logs", "detection", "metrics.jsonl")
+        epochs = [r for r in read_metrics(log) if "train_images_per_sec" in r]
+        if (trainer.state.step != CLI_STEPS or not os.path.isfile(last)
+                or not os.path.isfile(last + ".meta.json")
+                or [r["epoch"] for r in epochs] != [0]):
+            raise RuntimeError(f"cli train: step {trainer.state.step}, "
+                               f"epochs {[r['epoch'] for r in epochs]}, "
+                               f"files {os.listdir(os.path.dirname(last))}")
+        out["train_images_per_sec"] = epochs[0]["train_images_per_sec"]
+        if abs(epochs[0]["learning_rate"] - 25e-5) > 1e-12:
+            raise RuntimeError(f"lr {epochs[0]['learning_rate']} after "
+                               f"{CLI_STEPS} steps")
+        print(f"cli train: {secs:.1f} s; epoch 0 at "
+              f"{out['train_images_per_sec']:.2f} train images/s (host "
+              f"augmentation included, first steps cold) [{card}]; val_loss "
+              f"{epochs[0]['val_loss']:.4f}; lr {epochs[0]['learning_rate']}")
+        del trainer
+
+        # resume, the loader's workers forked after CUDA is up
+        seen_resume = collections.Counter()
+        trainer, secs, launches = counted(lambda: cli_det.cli_main(
+            common + ["--max_epochs", "2", "--worker_mode", "process",
+                      "--resume_from", last]), seen_resume)
+        expect_launches("cli resume (forked workers)", launches,
+                        16 * (CLI_STEPS + 1), 16 * CLI_STEPS)
+        out["launches"]["cli_resume"] = launches
+        epochs = [r for r in read_metrics(log) if "train_images_per_sec" in r]
+        steps_per_epoch = MINI_TRAIN // BATCH
+        want_lr = 25e-5 * (0.1 if 2 * CLI_STEPS >= steps_per_epoch else 1.0)
+        if ([r["epoch"] for r in epochs] != [0, 1]
+                or trainer.state.step != 2 * CLI_STEPS
+                or abs(epochs[1]["learning_rate"] - want_lr) > 1e-12):
+            raise RuntimeError(f"resume: epochs {[r['epoch'] for r in epochs]}"
+                               f", step {trainer.state.step}, lr "
+                               f"{epochs[1]['learning_rate']} (want {want_lr})")
+        out["resume_images_per_sec"] = epochs[1]["train_images_per_sec"]
+        print(f"cli resume: {secs:.1f} s; logged epoch 1 only, step "
+              f"{trainer.state.step}, lr {epochs[1]['learning_rate']} "
+              f"(milestone at step {steps_per_epoch}); epoch 1 at "
+              f"{out['resume_images_per_sec']:.2f} train images/s [{card}]")
+        del trainer
+
+        # evaluation of the checkpoint over MINI_EVAL val images
+        evals = {}
+        seen_tta = collections.Counter()
+        for name, flags, fwd in (
+                ("flip", ["--flip"], 16 * MINI_EVAL),
+                ("flip_multi_scale", ["--flip", "--multi_scale"],
+                 16 * 5 * MINI_EVAL),
+                ("batched", ["--batched", "--eval_batch_size", str(BATCH)],
+                 16 * -(-MINI_EVAL // BATCH))):
+            seen = seen_tta if name != "batched" else collections.Counter()
+            stats, secs, launches = counted(lambda: cli_tst.cli_test(
+                ["detection", image_root, eval_root, "--checkpoint", last]
+                + flags), seen)
+            expect_launches(f"cli test {name}", launches, fwd, 0)
+            out["launches"][f"test_{name}"] = launches
+            if not stats or not all(np.isfinite(v) for v in stats.values()):
+                raise RuntimeError(f"cli test {name}: stats {stats}")
+            evals[name] = {"stats": stats, "cli_s": secs}
+            print(f"cli test {name}: {secs:.2f} s for {MINI_EVAL} images "
+                  f"(cold: image reads, first calls at each shape, COCO "
+                  f"eval); AP {stats}")
+        print("AP near 0 is expected: 6 Adam steps from a random init on "
+              "random images")
+
+        # warm timings of the same paths, on the restored task
+        hp = load_checkpoint_hparams(last)
+        imgs = [img for img, _ in cli_det.eval_images(cli_det.CocoDetection(
+            os.path.join(image_root, "val2017"),
+            os.path.join(eval_root, "instances_val2017.json")))]
+        for name, scales in (("flip", None),
+                             ("flip_multi_scale", cli_tst.MULTI_SCALES)):
+            task = task_from_hparams(hp, dtype=torch.bfloat16, device=dev,
+                                     test_flip=True, test_scales=scales)
+            trainer = Trainer(task)
+            trainer.init_state()
+            restore_checkpoint(last, trainer.state)
+            for img in imgs:
+                task.predict(img)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for img in imgs:
+                task.predict(img)
+            torch.cuda.synchronize()
+            evals[name]["ms_per_image"] = (
+                1e3 * (time.perf_counter() - t0) / len(imgs))
+            print(f"{name}: {evals[name]['ms_per_image']:.2f} ms per image "
+                  f"(warm, host clock, {len(imgs)} images) [{card}]")
+            # the first image (640x480) alone: wall time against the
+            # device's busy time, to tell the host's share
+            t0 = time.perf_counter()
+            for _ in range(3):
+                task.predict(imgs[0])
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 3
+            busy = device_busy(lambda: task.predict(imgs[0]), 3)
+            evals[name].update(wall_ms_640x480=wall,
+                               busy_ms_640x480=busy["busy_ms"],
+                               kernels_640x480=busy["launches"])
+            print(f"{name}, one 640x480 image: {wall:.2f} ms (host clock), "
+                  f"device busy {busy['busy_ms']:.3f} ms "
+                  f"({busy['launches']:.0f} kernels), idle "
+                  f"{1 - busy['busy_ms'] / wall:.1%}; dcn_fwd "
+                  f"{busy['dcn_ms']:.3f} ms [{card}]")
+            print("  top kernels (ms per image): " + "; ".join(
+                f"{k[:60]} {t:.3f}" for k, t in busy["top"][:5]))
+        pairs = [(img, i) for i, img in enumerate(imgs)]
+        trainer.test_batched(pairs, batch_size=BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.test_batched(pairs, batch_size=BATCH)
+        torch.cuda.synchronize()
+        evals["batched"]["images_per_sec"] = len(imgs) / (
+            time.perf_counter() - t0)
+        print(f"batched: {evals['batched']['images_per_sec']:.2f} images/s "
+              f"(warm, B{BATCH} at {HW}x{HW}, host clock) [{card}]")
+        out["evals"] = evals
+
+        # the kernels at every DCN shape TTA met
+        shapes = sorted({k[1:] for k in seen_tta}, key=lambda s: s[0] * s[1])
+        if any(k[0] != 2 for k in seen_tta):
+            raise RuntimeError(f"flip TTA ran a batch other than 2: "
+                               f"{sorted(seen_tta)}")
+        ragged = [s for s in shapes if s[0] % 8 or s[1] % 8]
+        print(f"TTA met {len(shapes)} DCN shapes at B2 ({len(ragged)} with "
+              f"a side the 8x8 tile does not divide, "
+              f"{sum(s[0] != s[1] for s in shapes)} non-square)")
+        first = ragged[:1] + shapes[-1:]  # also checked in f32
+        rows, errs = check_kernels_at_shapes(
+            first + [s for s in shapes if s not in first], dev)
+        total = sum(rows[k[1:]]["ms"] * n for k, n in seen_tta.items())
+        bound = sum(rows[k[1:]]["bound_ms"] * n for k, n in seen_tta.items())
+        passes = 6 * MINI_EVAL  # per image: 1 scale, then 5 scales
+        print(f"dcn_fwd kernel time over both TTA runs (per-shape times x "
+              f"calls): {total:.3f} ms, {total / passes:.3f} ms per image "
+              f"and scale; bound {bound:.3f} ms ({bound / total:.1%} of the "
+              f"time) [{card}]")
+        out["tta_shapes"] = {
+            "shapes": len(shapes), "ragged": len(ragged),
+            "max_abs_err": errs, "fwd_ms": total, "fwd_bound_ms": bound}
+
+        # the card against the CPU through the flip TTA
+        state = {k: v.float().cpu()
+                 for k, v in task.model.state_dict().items()}
+        check_tta_card_vs_cpu(state, imgs[CPU_CHECK_IMAGE])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -691,6 +1178,9 @@ def main() -> int:
         return 1
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
+    # a hang (a forked loader worker, a kernel) ends the run with a traceback
+    # instead of holding the card until the caller's limit
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     phase("1 environment")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -698,6 +1188,7 @@ def main() -> int:
     print(run([dcn_cuda.find_nvcc(), "--version"]).splitlines()[-1])
     card = gpu_name_and_limit()
     print(f"card: {card}; devices: {torch.cuda.device_count()}")
+    print(f"image codec: {image_codec() or 'none (neither cv2 nor PIL)'}")
     if any(m in sys.modules for m in ("jax", "centernet_tpu")):
         raise RuntimeError("the port pulled in JAX or the JAX package")
 
@@ -830,6 +1321,11 @@ def main() -> int:
           f"{train_timing[4]['busy']['dcn_bwd_ms']:.3f} ms of "
           f"{train_timing[4]['ms']:.3f} ms")
 
+    phase("9 CLI slice: dla_34 detection train, resume and TTA eval on a "
+          "mini-COCO, 512x512, bf16")
+    cli = run_cli_slice(dev, card)
+    cl = cli["launches"]
+
     def summary(name, src, tpu, kernel_rows, launches_by_path, ms):
         bf16 = [r for r in kernel_rows if r["dtype"] == "bfloat16"]
         by_bytes = sum(r["bound_ms"] * r["layers"] for r in bf16
@@ -849,16 +1345,34 @@ def main() -> int:
             "per_shape": kernel_rows,
         }
 
+    def by_path(name, serve, train):
+        return {"serve": serve, "train": train,
+                "cli_train": cl["cli_train"][name],
+                "cli_resume": cl["cli_resume"][name],
+                "tta": cl["test_flip"][name] + cl["test_flip_multi_scale"][name],
+                "batched_eval": cl["test_batched"][name]}
+
     kernels = [
         summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
-                {"serve": launches, "train": train_launches["dcn_fwd"]},
+                by_path("dcn_fwd", launches, train_launches["dcn_fwd"]),
                 dcn_ms),
         summary("dcn_bwd", BWD_KERNEL_SRC, BWD_KERNEL_TPU, bwd_rows,
-                {"serve": 0, "train": train_launches["dcn_bwd"]}, bwd_ms),
+                by_path("dcn_bwd", 0, train_launches["dcn_bwd"]), bwd_ms),
     ]
+    tta = cli["tta_shapes"]
+    for k, which in zip(kernels, ("fwd", "bwd")):
+        k["max_abs_err"] = max(k["max_abs_err"], tta["max_abs_err"][which])
+        k["tta_shapes"] = {"shapes": tta["shapes"], "ragged": tta["ragged"],
+                           "max_abs_err": tta["max_abs_err"][which]}
+    kernels[0]["tta_shapes"].update(ms=tta["fwd_ms"],
+                                    bound_ms=tta["fwd_bound_ms"])
     print(json.dumps({"train": {
         "losses": losses, "grad_check": grad_check,
         "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
+    print(json.dumps({"cli": {
+        "train_images_per_sec": cli["train_images_per_sec"],
+        "resume_images_per_sec": cli["resume_images_per_sec"],
+        "evals": cli["evals"], "launches": cl}}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
         bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
         print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "

@@ -26,11 +26,20 @@ want| over max(1, max |want|):
   bf16 on both sides, from f32 values summed in another order, so a rounding
   may land on the neighbouring bf16 value and carry 2**-8 into a sum.
 
+The TTA cases run both kernels at the 35 non-square maps dla_34's DCN layers
+meet when flip + multi-scale TTA (scales 0.5-1.5, bucket 128) evaluates a
+640x480 image, at batch 2 (the flip pair): sides such as 12, 20 and 28 that
+the 8x8 tile does not divide, on the wgmma kernels in bf16.
+
 TF32 is off for the f32 cases (the plain versions' matrix products).
 """
 
 import pytest
 import torch
+
+# (as a top-level module: pytest puts tests/ on the path, and the card's
+# machine has another package named ``tests``)
+from torch_port_common import tta_dcn_shapes
 
 pytestmark = pytest.mark.cuda
 
@@ -344,3 +353,43 @@ def test_backward_differs_from_run_to_run_within_tolerance(dev, dtype):
     torch.cuda.synchronize()
     for name, a, b in zip(BWD_NAMES, first, second):
         assert _rel_err(a, b) <= BWD_TOL[dtype] / 10, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", tta_dcn_shapes(),
+                         ids=lambda s: f"{s[0]}x{s[1]}_C{s[2]}-{s[3]}")
+def test_kernels_match_plain_at_tta_shapes(dev, shape, dtype):
+    """Both kernels at a map of flip + multi-scale TTA, batch 2, with
+    offsets drawn across +-(r+1), clamped, some exactly on the bounds."""
+    from centernet_tpu_torch.ops.dcn import (CLIP_EPS, dcn_radius,
+                                             deform_conv2d,
+                                             deform_conv2d_backward,
+                                             deform_conv2d_backward_reference,
+                                             deform_conv2d_reference)
+    from centernet_tpu_torch.ops.dcn_cuda import launch_counts
+
+    h, w, ci, co = shape
+    gen = torch.Generator(device=dev).manual_seed(h * w + ci + co)
+    kw = {"generator": gen, "device": dev}
+    r = dcn_radius(h, w)
+    x = torch.randn(2, h, w, ci, **kw).to(dtype)
+    off = ((torch.rand(2, h, w, 18, **kw) * 2 - 1) * (r + 1)).clamp(
+        -r, r - CLIP_EPS)
+    off.view(-1)[::7] = -r
+    off.view(-1)[3::11] = r - CLIP_EPS
+    mask = torch.rand(2, h, w, 9, **kw)
+    wt = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
+    bias = torch.randn(co, **kw) * 0.1
+    g = torch.randn(2, h, w, co, **kw)
+    before = dict(launch_counts)
+    got = deform_conv2d(x, off, mask, wt, bias, radius=r)
+    got_bwd = deform_conv2d_backward(x, off, mask, wt, g, radius=r)
+    assert launch_counts["dcn_fwd"] == before.get("dcn_fwd", 0) + 1
+    assert launch_counts["dcn_bwd"] == before.get("dcn_bwd", 0) + 1
+    want = deform_conv2d_reference(x, off, mask, wt, bias)
+    want_bwd = deform_conv2d_backward_reference(x, off, mask, wt, g)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h, w, co) and bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= TOL[dtype]
+    _assert_backward_close(got_bwd, want_bwd, dtype, shape)

@@ -7,8 +7,11 @@ shared memory. The kernels only run on a GPU, but the plan's promises can be
 checked anywhere:
 
 * every configuration the models use (dla_34's 7 DCN shapes and res_18's 3
-  at 512x512, batches 4, 8, 16) and the ragged shapes of the card tests fit
-  in a block's 232,448 bytes of shared memory, in bf16 and f32;
+  at 512x512, batches 4, 8, 16), the ragged shapes of the card tests and the
+  35 non-square maps that flip + multi-scale TTA feeds dla_34's DCN layers
+  for a 640x480 image (batch 2, sides such as 12, 20 and 28 that the 8x8
+  tile does not divide) fit in a block's 232,448 bytes of shared memory, in
+  bf16 and f32;
 * the window's halo is r + 1 with the module's own radius rule, and every
   in-image corner of every offset in [-r, r - 1/64] of every pixel of a tile
   lies inside that tile's window (a hypothesis property over maps, offsets
@@ -28,6 +31,7 @@ from hypothesis import strategies as st
 from centernet_tpu_torch.ops.dcn import CLIP_EPS, _corners, dcn_radius
 from centernet_tpu_torch.ops.dcn_cuda import (H100_SMS, SMEM_LIMIT, TILE,
                                               launch_plan, tile_origin)
+from tests.torch_port_common import tta_dcn_shapes
 
 # (map side, Ci, Co) at a 512x512 input
 DLA34 = [(128, 64, 64), (64, 128, 64), (64, 128, 128), (32, 256, 128),
@@ -40,7 +44,9 @@ MODEL_CASES = (
     [("dla_34", b, hw, hw, ci, co) for hw, ci, co in DLA34 for b in (4, 8, 16)]
     + [("res_18", b, hw, hw, ci, co) for hw, ci, co in RES18
        for b in (4, 8, 16)])
-ALL_CASES = MODEL_CASES + [("ragged", *c) for c in RAGGED]
+# flip TTA at the five scales of a 640x480 image, bucket 128
+TTA = [("tta", 2, h, w, ci, co) for h, w, ci, co in tta_dcn_shapes()]
+ALL_CASES = MODEL_CASES + [("ragged", *c) for c in RAGGED] + TTA
 DTYPES = [torch.bfloat16, torch.float32]
 
 
@@ -101,7 +107,9 @@ def test_grids_are_not_empty_and_fill_the_card_at_model_shapes(case, dtype):
         assert all(g >= 1 for g in grid)
         # (the f32 forward is the simple variant: a block per tile and 64
         # output channels, however few that makes)
-        if name != "ragged" and (plan["fast"] or grid is not fwd["grid"]):
+        if name == "ragged" or name == "tta":  # small maps, few blocks
+            continue
+        if plan["fast"] or grid is not fwd["grid"]:
             assert grid[0] * grid[1] >= 128, grid
     # the dW launch: waves of two blocks per SM, a block walking its share of
     # the tiles and flushing once; the splits are the fewest that make the

@@ -2,8 +2,11 @@
 
 * The port imports neither JAX nor the JAX package. The test suite's conftest
   imports JAX into this process, so the check runs in a fresh interpreter.
+  The walk covers every module, the CLIs (``cli``), ``utils``, the data
+  loader and ``entry`` among them.
 * Entry points default to CUDA and raise without it instead of running on the
-  CPU; the CPU is used only when the caller asks for it.
+  CPU; the CPU is used only when the caller asks for it (``entry()`` and the
+  CLIs included).
 * ``deform_conv2d`` sends a CPU tensor to the plain PyTorch version and never
   to the kernel's wrapper, which refuses CPU tensors.
 """
@@ -35,6 +38,12 @@ pkg.CenterNetDetection, pkg.create_model  # the lazy exports resolve
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "centernet_tpu"))
+want = {"centernet_tpu_torch." + m for m in (
+    "cli.common", "cli.detection", "cli.test", "data.coco", "data.loader",
+    "data.transforms", "entry", "ops.nms", "parallel.trainer",
+    "utils.checkpoint", "utils.coco_eval", "utils.logging",
+    "utils.profiling", "utils.torch_import")}
+assert want <= set(names), sorted(want - set(names))
 print(len(names), bad)
 """
 
@@ -46,7 +55,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, res.stdout  # every module of the slice was imported
+    assert int(n) >= 30, res.stdout  # every module of the slices imported
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -58,6 +67,20 @@ def test_task_defaults_to_cuda_and_never_falls_back_to_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         CenterNetDetection("dla_34")
     assert CenterNetDetection("dla_34", device="cpu").device.type == "cpu"
+
+
+def test_entry_and_clis_default_to_cuda(tmp_path):
+    from centernet_tpu_torch.cli.test import cli_test
+    from centernet_tpu_torch.entry import entry
+
+    if torch.cuda.is_available():
+        _, (images,) = entry()
+        assert images.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_test(["detection", str(tmp_path), str(tmp_path)])
 
 
 def test_deform_conv2d_routes_cpu_tensors_to_the_plain_version(monkeypatch):

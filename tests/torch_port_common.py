@@ -74,3 +74,81 @@ def torch_cpu_setup():
 
     torch.set_num_threads(2)  # tier-1 runs 6 xdist workers
     return torch
+
+
+# COCO-like image sizes (w, h) and a few of the 80 category ids
+COCO_SIZES = [(160, 128), (128, 160), (160, 107), (125, 94)]
+COCO_CATEGORY_IDS = [1, 3, 18, 44, 62, 90]
+
+
+def write_image(path, img_rgb):
+    """Write an RGB uint8 image with cv2, else PIL."""
+    try:
+        import cv2
+
+        cv2.imwrite(path, np.ascontiguousarray(img_rgb[..., ::-1]))
+    except ImportError:
+        from PIL import Image
+
+        Image.fromarray(img_rgb).save(path)
+
+
+def make_mini_coco(root, n_train=8, n_val=4, sizes=COCO_SIZES, seed=0):
+    """A seeded COCO folder: ``<root>/images/{train,val}2017/*.png`` and
+    ``<root>/annotations/instances_{train,val}2017.json``, each image with
+    2-6 boxes over ``COCO_CATEGORY_IDS``. Returns (image_root, ann_root)."""
+    import json
+    import os
+
+    rng = np.random.default_rng(seed)
+    ann_root = os.path.join(root, "annotations")
+    os.makedirs(ann_root, exist_ok=True)
+    for split, n in (("train2017", n_train), ("val2017", n_val)):
+        img_dir = os.path.join(root, "images", split)
+        os.makedirs(img_dir, exist_ok=True)
+        images, anns = [], []
+        for i in range(n):
+            w, h = sizes[i % len(sizes)]
+            name = f"{i:012d}.png"
+            write_image(os.path.join(img_dir, name),
+                        rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            images.append({"id": i, "file_name": name, "width": w,
+                           "height": h})
+            for _ in range(int(rng.integers(2, 7))):
+                bw, bh = rng.uniform(0.1, 0.5) * w, rng.uniform(0.1, 0.5) * h
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append({
+                    "id": len(anns) + 1, "image_id": i,
+                    "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
+                    "bbox": [float(x), float(y), float(bw), float(bh)],
+                    "area": float(bw * bh), "iscrowd": 0})
+        coco = {"images": images, "annotations": anns,
+                "categories": [{"id": c, "name": f"c{c}"}
+                               for c in COCO_CATEGORY_IDS]}
+        with open(os.path.join(ann_root, f"instances_{split}.json"), "w") as f:
+            json.dump(coco, f)
+    return os.path.join(root, "images"), ann_root
+
+
+# dla_34's DCN layers: (stride, Ci, Co, layers)
+DLA34_DCN_LAYERS = [(4, 64, 64, 5), (8, 128, 64, 4), (8, 128, 128, 2),
+                    (16, 256, 128, 2), (16, 256, 256, 1), (16, 256, 64, 1),
+                    (32, 512, 256, 1)]
+MULTI_SCALES = [0.5, 0.75, 1.0, 1.25, 1.5]
+
+
+def tta_dcn_shapes(img_hw=(480, 640), scales=MULTI_SCALES, bucket=128):
+    """The (H, W, Ci, Co) DCN shapes dla_34 meets when TTA feeds it one
+    ``img_hw`` image at ``scales`` (the reference pad rule, then the
+    bucket), in order of first appearance."""
+    from centernet_tpu_torch.tasks.detection import tta_pad_dims
+
+    shapes = []
+    for s in scales:
+        th, tw = tta_pad_dims(int(img_hw[0] * s), int(img_hw[1] * s), 31,
+                              bucket)
+        for stride, ci, co, _ in DLA34_DCN_LAYERS:
+            shape = (th // stride, tw // stride, ci, co)
+            if shape not in shapes:
+                shapes.append(shape)
+    return shapes
