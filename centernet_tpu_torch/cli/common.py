@@ -17,8 +17,8 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--arch",
         default="dla_34",
-        help="backbone architecture; the port has dla_34 (res_*, resdcn_* "
-        "and hourglass come with ROADMAP A8)",
+        help="backbone architecture: res_18 | res_101 | resdcn_18 | "
+        "resdcn_101 | dla_34 | hourglass",
     )
     parser.add_argument("--learning_rate", type=float, default=25e-5)
     parser.add_argument("--learning_rate_milestones", default="90,120")
@@ -80,9 +80,10 @@ def add_data_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--backbone_weights",
         default=None,
-        help="local ImageNet classifier state_dict (dl.yf.io dla34 naming) "
-        "for fresh-training backbone init — the file-based equivalent of "
-        "the reference's pretrained download",
+        help="local ImageNet classifier state_dict (dl.yf.io dla34 or "
+        "torchvision resnet naming; none exists for hourglass) for "
+        "fresh-training backbone init — the file-based equivalent of the "
+        "reference's pretrained download",
     )
     parser.add_argument(
         "--resume_from",

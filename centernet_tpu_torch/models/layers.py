@@ -70,6 +70,58 @@ class BilinearConvTranspose(CastCache, nn.ConvTranspose2d):
         self.weight.copy_(k2d.expand_as(self.weight))
 
 
+class ConvTranspose2x(CastCache, nn.ConvTranspose2d):
+    """Full (not grouped) ConvTranspose2d(4, stride 2, padding 1), no bias:
+    out = 2 * in. ``bilinear_init`` puts the bilinear kernel on the diagonal
+    (each channel upsamples itself; the JAX package's documented divergence
+    from the reference's ``fill_up_weights``), else the weights start at
+    normal(0.001). As ``BilinearConvTranspose``, the weight is the spatial
+    flip of the JAX kernel (``utils.jax_import``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 bilinear_init: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, 4, stride=2, padding=1,
+                         bias=False)
+        self.bilinear_init = bilinear_init
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.param_as("weight", dt), None,
+                                  self.stride, self.padding)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        if self.bilinear_init:
+            k2d = bilinear_upsample_kernel(self.kernel_size[0])
+            self.weight.zero_()
+            for c in range(min(self.weight.shape[:2])):
+                self.weight[c, c].copy_(k2d)
+        else:
+            self.weight.copy_(torch.empty(self.weight.shape).normal_(
+                0.0, 0.001, generator=generator))
+
+
+class ConvTransposeBNAct(nn.Sequential):
+    """``ConvTranspose2x`` (normal(0.001) init) + BatchNorm + ReLU (the
+    plain ResNet's deconv blocks); keys ``0.*`` (transpose conv) and ``1.*``
+    (BN)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(
+            ConvTranspose2x(in_channels, out_channels, dtype=dtype),
+            BatchNorm2d(out_channels),
+            nn.ReLU(inplace=True),
+        )
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """``nn.Upsample(scale_factor=2)``: each pixel repeated 2 x 2 (exact)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
 @torch.no_grad()
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator,
                   fan_in: int) -> None:

@@ -13,10 +13,16 @@
   (``torch.nn.BatchNorm2d`` folds in the unbiased one, ``n / (n - 1)`` times
   larger), eps 1e-5. It keeps f32 parameters and statistics, takes and
   returns the compute dtype, and does its affine math in f32.
+* ``frozen_statistics(module)``: while it is active, the train-mode
+  BatchNorms under ``module`` normalise with the batch's statistics as
+  always but leave their running statistics alone. A checkpointed forward
+  (``torch.utils.checkpoint``) runs again in the backward pass; under this
+  context the statistics advance once per step, as under flax's remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -73,6 +79,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_statistics = True
 
     def forward(self, x):
         if not self.training:
@@ -80,6 +87,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not self.update_statistics:
+            return y
         with torch.no_grad():
             var = invstd.double().pow(-2).sub(self.eps).float()  # biased
             m = self.momentum
@@ -87,3 +96,17 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var * m)
             self.num_batches_tracked.add_(1)
         return y
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Keep the running statistics of every ``BatchNorm2d`` under ``module``
+    as they are while the context is active (see the module docstring)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_statistics = True

@@ -1,7 +1,11 @@
 """Base CenterNet task, PyTorch port of ``centernet_tpu/tasks/base.py``.
 
 * ``CenterNetModel``: backbone + one ``CenterHead`` per supervision stack, an
-  ``nn.Module`` on NCHW channels_last tensors.
+  ``nn.Module`` on NCHW channels_last tensors. With ``remat`` (hourglass, as
+  in the JAX package) a train-mode forward checkpoints the backbone: its
+  activations are recomputed in the backward pass, with the BatchNorm
+  statistics held (``ops.modules.frozen_statistics``) so that they advance
+  once per step.
 * ``CenterNet``: the task. It owns the model on an explicit device, the arch
   constants, its hyperparameters for checkpoint sidecars (``hparams``), the
   on-device uint8 normalisation, the fixed-shape eval geometry
@@ -15,15 +19,18 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..data.transforms import normalize_coeffs
 from ..models import CenterHead, create_model
 from ..models.layers import init_parameters
+from ..ops.modules import frozen_statistics
 
 
 def arch_head_conv(arch: str) -> int:
@@ -92,9 +99,10 @@ class CenterNetModel(nn.Module):
     dict of NCHW f32 head outputs."""
 
     def __init__(self, arch: str, heads: Mapping[str, int], head_conv: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.backbone = create_model(arch, dtype)
         self.heads = nn.ModuleList(
             CenterHead(heads, self.backbone.out_channels, head_conv,
@@ -102,7 +110,14 @@ class CenterNetModel(nn.Module):
             for _ in range(self.backbone.num_stacks))
 
     def forward(self, x) -> List[Dict[str, torch.Tensor]]:
-        feats = self.backbone(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.remat and self.training and torch.is_grad_enabled():
+            feats = torch.utils.checkpoint.checkpoint(
+                self.backbone, x, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_statistics(self.backbone)))
+        else:
+            feats = self.backbone(x)
         return [head(f) for head, f in zip(self.heads, feats)]
 
 
@@ -143,7 +158,8 @@ class CenterNet:
         self.num_stacks = arch_num_stacks(arch)
         self.padding = arch_test_padding(arch)
         self.down_ratio = 4
-        model = CenterNetModel(arch, dict(self.heads), self.head_conv, dtype)
+        model = CenterNetModel(arch, dict(self.heads), self.head_conv, dtype,
+                               remat="hourglass" in arch)
         init_parameters(model, torch.Generator().manual_seed(seed))
         self.model = model.to(
             self.device, memory_format=torch.channels_last).eval()

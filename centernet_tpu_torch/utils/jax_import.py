@@ -7,11 +7,14 @@ numpy (or array-like) leaves. The layout transforms are the inverse of
 * conv kernel HWIO -> OIHW;
 * depthwise transpose-conv kernel [k,k,1,C] -> [C,1,k,k] with a spatial flip
   (JAX applies it unflipped as an lhs-dilated conv; ``ConvTranspose2d``
-  flips it);
+  flips it), and a full one [k,k,in,out] -> [in,out,k,k], flipped alike;
 * DCN weight [9*Ci, Co] tap-major -> [Co, Ci, 3, 3];
 * ``conv_offset_mask`` output channels from the JAX order (dy_0..dy_8,
   dx_0..dx_8, mask) back to the reference's interleaved (dy_k, dx_k) order;
 * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+
+Every backbone family is covered (res, resdcn, dla, hourglass), in the
+order of the JAX package's ``centernet_tpu/utils/torch_import.py::_map_*``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ..models import DLASeg, HourglassNet, PoseResNet, PoseResNetDCN
 
 KK = 9
 
@@ -44,6 +49,10 @@ def _conv(k: np.ndarray) -> np.ndarray:
 
 def _grouped_up(k: np.ndarray) -> np.ndarray:
     return np.transpose(k, (3, 2, 0, 1))[:, :, ::-1, ::-1]
+
+
+def _full_up(k: np.ndarray) -> np.ndarray:
+    return np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1]
 
 
 def _dcn_weight(w: np.ndarray) -> np.ndarray:
@@ -119,11 +128,111 @@ def _dla_pairs(levels=(1, 1, 1, 2, 2, 1)) -> Iterator[Tuple[str, str, tuple]]:
     yield from ida("ida_up", ("backbone", "ida_up"), 3)
 
 
+# ... of the res and resdcn families (_map_resnet_stages, _map_res,
+# _map_resdcn): a stage's first block downsamples its residual where the
+# stride (stages 2-4) or the width (stage 1 of a bottleneck net) changes.
+def _resnet_stage_pairs(expansion: int, layers):
+    r = ("backbone", "resnet")
+    yield "conv", "conv1", r + ("conv1",)
+    yield "bn", "bn1", r + ("bn1",)
+    n_convs = 3 if expansion == 4 else 2
+    for li, blocks in enumerate(layers):
+        for bi in range(blocks):
+            t, f = f"layer{li + 1}.{bi}", r + (f"layer{li + 1}_{bi}",)
+            for c in range(n_convs):
+                yield "conv", f"{t}.conv{c + 1}", f + (f"Conv_{c}",)
+                yield "bn", f"{t}.bn{c + 1}", f + (f"BatchNorm_{c}",)
+            if bi == 0 and (li > 0 or expansion != 1):
+                yield "conv", f"{t}.downsample.0", f + (f"Conv_{n_convs}",)
+                yield "bn", f"{t}.downsample.1", f + (f"BatchNorm_{n_convs}",)
+
+
+def _res_pairs(expansion: int, layers):
+    yield from _resnet_stage_pairs(expansion, layers)
+    for i in range(3):
+        f = ("backbone", f"deconv{i}")
+        yield "tconv", f"deconv_layers.{3 * i}", f + ("ConvTranspose2x_0",)
+        yield "bn", f"deconv_layers.{3 * i + 1}", f + ("BatchNorm_0",)
+
+
+def _resdcn_pairs(expansion: int, layers):
+    yield from _resnet_stage_pairs(expansion, layers)
+    for i in range(3):
+        b = 6 * i
+        yield "dcn", f"deconv_layers.{b}", ("backbone", f"dcn{i}")
+        yield "bn", f"deconv_layers.{b + 1}", ("backbone", f"dcn_bn{i}")
+        yield "tconv", f"deconv_layers.{b + 3}", ("backbone", f"up{i}")
+        yield "bn", f"deconv_layers.{b + 4}", ("backbone", f"up_bn{i}")
+
+
+# ... of the hourglass (_map_hourglass): a residual has a skip where its
+# stride or its width changes (at full width, as the map has it; a narrow
+# net's first stack also has one on ``up1.0``).
+def _hg_residual(t, f, skip):
+    for i in (1, 2):
+        yield "conv", f"{t}.conv{i}", f + (f"Conv_{i - 1}",)
+        yield "bn", f"{t}.bn{i}", f + (f"BatchNorm_{i - 1}",)
+    if skip:
+        yield "conv", f"{t}.skip.0", f + ("Conv_2",)
+        yield "bn", f"{t}.skip.1", f + ("BatchNorm_2",)
+
+
+def _hg_module(t, f, n, dims, modules, cin):
+    curr_mod, next_mod = modules[0], modules[1]
+    for i in range(curr_mod):
+        yield from _hg_residual(f"{t}.up1.{i}", f + (f"up1_{i}",),
+                                i == 0 and cin != dims[0])
+        yield from _hg_residual(f"{t}.low1.{i}", f + (f"low1_{i}",), i == 0)
+    if n > 1:
+        yield from _hg_module(f"{t}.low2", f + ("low2",), n - 1, dims[1:],
+                              modules[1:], dims[1])
+    else:
+        for i in range(next_mod):
+            yield from _hg_residual(f"{t}.low2.{i}", f + (f"low2_{i}",),
+                                    False)
+    for i in range(curr_mod):
+        yield from _hg_residual(f"{t}.low3.{i}", f + (f"low3_{i}",),
+                                i == curr_mod - 1 and dims[1] != dims[0])
+
+
+def _hourglass_pairs(num_stacks, n, dims, modules):
+    b = ("backbone",)
+    yield "conv", "pre.0.conv", b + ("pre_conv", "Conv_0")
+    yield "bn", "pre.0.bn", b + ("pre_conv", "BatchNorm_0")
+    yield from _hg_residual("pre.1", b + ("pre_res",), True)
+    for s in range(num_stacks):
+        # ``pre`` ends at 256 channels, the later stacks take dims[0]
+        yield from _hg_module(f"kps.{s}", b + (f"kp_{s}",), n, dims, modules,
+                              256 if s == 0 else dims[0])
+        yield "conv", f"cnvs.{s}.conv", b + (f"cnv_{s}", "Conv_0")
+        yield "bn", f"cnvs.{s}.bn", b + (f"cnv_{s}", "BatchNorm_0")
+    for s in range(num_stacks - 1):
+        yield "conv", f"inters_.{s}.0", b + (f"inter__conv_{s}",)
+        yield "bn", f"inters_.{s}.1", b + (f"inter__bn_{s}",)
+        yield "conv", f"cnvs_.{s}.0", b + (f"cnv__conv_{s}",)
+        yield "bn", f"cnvs_.{s}.1", b + (f"cnv__bn_{s}",)
+        yield from _hg_residual(f"inters.{s}", b + (f"inters_{s}",), False)
+
+
+def _backbone_pairs(backbone) -> Iterator[Tuple[str, str, tuple]]:
+    """The (kind, torch key, JAX path) triples of a port backbone."""
+    if isinstance(backbone, DLASeg):
+        return _dla_pairs()
+    if isinstance(backbone, PoseResNetDCN):
+        return _resdcn_pairs(backbone.expansion, backbone.layers)
+    if isinstance(backbone, PoseResNet):
+        return _res_pairs(backbone.expansion, backbone.layers)
+    if isinstance(backbone, HourglassNet):
+        return _hourglass_pairs(backbone.num_stacks, backbone.n,
+                                backbone.dims, backbone.depths)
+    raise TypeError(f"no JAX import for {type(backbone).__name__}")
+
+
 def jax_state_dict(model, variables: Mapping) -> Dict[str, np.ndarray]:
     """The port's state_dict (numpy, f32) for a JAX variable tree."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
-    for kind, t, f in _dla_pairs():
+    for kind, t, f in _backbone_pairs(model.backbone):
         t = f"backbone.{t}"
         if kind == "conv":
             sd[f"{t}.weight"] = _conv(_get(params, f + ("kernel",)))
@@ -135,8 +244,10 @@ def jax_state_dict(model, variables: Mapping) -> Dict[str, np.ndarray]:
         elif kind == "dcn":
             for k, v in dcn_state_dict(_subtree(params, f)).items():
                 sd[f"{t}.{k}"] = v
-        else:  # up
+        elif kind == "up":
             sd[f"{t}.weight"] = _grouped_up(_get(params, f + ("kernel",)))
+        else:  # tconv
+            sd[f"{t}.weight"] = _full_up(_get(params, f + ("kernel",)))
     for s, head in enumerate(model.heads):
         for name in head.names:
             for conv_i, seq in ((0, 0), (1, 2)):
@@ -149,7 +260,7 @@ def jax_state_dict(model, variables: Mapping) -> Dict[str, np.ndarray]:
 
 @torch.no_grad()
 def load_jax_variables(model, variables: Mapping) -> None:
-    """Fill a ``CenterNetModel`` (dla family) from JAX variables, in place.
+    """Fill a ``CenterNetModel`` (any family) from JAX variables, in place.
     Every parameter and BN statistic of the model must be covered."""
     sd = jax_state_dict(model, variables)
     own = model.state_dict()

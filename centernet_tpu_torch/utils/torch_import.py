@@ -1,23 +1,27 @@
 """Published CenterNet and ImageNet weights into the port's models, PyTorch
 port of ``centernet_tpu/utils/torch_import.py::load_legacy_centernet_weights``
-and ``load_imagenet_backbone``.
+and ``load_imagenet_backbone``, for every backbone family.
 
 The port keeps the reference's state_dict layout (OIHW weights, the legacy
 module names, ``conv_offset_mask`` interleaved), so no tensor changes layout:
 
-* a legacy full-CenterNet state_dict (``base.*``, ``dla_up.*``, ``ida_up.*``
-  and the ``hm`` / ``wh`` / ``reg`` heads) has its head keys renamed through
-  ``HEAD_KEY_MAPPING`` and its backbone keys put under ``backbone.``, then
-  loads strictly: a key the model has and the file lacks, or the reverse,
-  raises;
-* an ImageNet classifier state_dict (dl.yf.io ``dla34`` naming,
-  base-relative: ``base_layer``, ``level0`` .. ``level5``; its ``fc`` is
-  ignored) fills ``backbone.base.*`` and leaves the up path and the heads as
-  they are; a ``backbone.base`` key the file lacks raises ("ImageNet import
-  left N backbone keys unmatched").
-
-Only the dla family is ported so far; the resnet and hourglass families come
-with ROADMAP A8.
+* a legacy full-CenterNet state_dict (the backbone's own names: ``base.*``,
+  ``dla_up.*`` for dla; ``conv1``, ``layer1.0.*``, ``deconv_layers.*`` for
+  res and resdcn; ``pre.*``, ``kps.*``, ``cnvs.*``, ``inters*`` for the
+  hourglass; and the ``hm`` / ``wh`` / ``reg`` heads, the original
+  hourglass's per-stack ``hm.<stack>.0.conv.*`` / ``hm.<stack>.1.*``
+  included) has its head keys renamed through ``HEAD_KEY_MAPPING`` and its
+  backbone keys put under ``backbone.``, then loads strictly: a key the
+  model has and the file lacks, or the reverse, raises;
+* an ImageNet classifier state_dict (its ``fc`` is ignored) fills the
+  backbone's trunk and leaves the up path and the heads as they are: the
+  dl.yf.io ``dla34`` naming (base-relative: ``base_layer``, ``level0`` ..
+  ``level5``) into ``backbone.base.*`` for dla, torchvision's
+  ``resnet{18,34,50,101,152}`` naming (``conv1``, ``bn1``, ``layer1`` ..
+  ``layer4``) into the ResNet trunk for res and resdcn. A trunk key the file
+  lacks raises ("ImageNet import left N backbone keys unmatched"), and so
+  does a key the trunk does not have. No ImageNet weights exist for the
+  hourglass: asking for them raises.
 """
 
 from __future__ import annotations
@@ -54,17 +58,14 @@ def legacy_state_dict(state_dict: Mapping[str, torch.Tensor]
     return out
 
 
-def _missing(model: torch.nn.Module, sd: Mapping, prefix: str = ""
-             ) -> List[str]:
-    return sorted(k for k in model.state_dict()
-                  if k.startswith(prefix) and k not in sd
+def _missing(model: torch.nn.Module, sd: Mapping) -> List[str]:
+    return sorted(k for k in model.state_dict() if k not in sd
                   and not k.endswith("num_batches_tracked"))
 
 
 def load_legacy_centernet_weights(path: str, task) -> None:
     """Load a legacy CenterNet checkpoint file into ``task.model``, strictly
     (reference load_pretrained_weights, centernet.py:23-62)."""
-    _family(task)
     sd = legacy_state_dict(load_torch_state_dict(path))
     missing = _missing(task.model, sd)
     unexpected = sorted(set(sd) - set(task.model.state_dict()))
@@ -79,30 +80,43 @@ def load_legacy_centernet_weights(path: str, task) -> None:
     task.model.load_state_dict(sd, strict=False)
 
 
+def _imagenet_trunk(task):
+    """(prefix put before the file's keys, the trunk's model keys) for
+    ``task``'s backbone family."""
+    family = task.arch.split("_")[0]
+    own = task.model.state_dict()
+    if family == "dla":
+        prefix = "backbone.base."
+        trunk = [k for k in own if k.startswith(prefix)]
+    elif family in ("res", "resdcn"):
+        prefix = "backbone."
+        trunk = [k for k in own if k.startswith(prefix)
+                 and not k.startswith("backbone.deconv_layers.")]
+    else:
+        raise NotImplementedError(
+            f"no ImageNet weights exist for family {family!r} (the "
+            f"reference ships none for hourglass either)")
+    return prefix, set(trunk)
+
+
 def load_imagenet_backbone(path: str, task) -> None:
-    """Initialise ``task.model``'s DLA trunk from a local ImageNet classifier
+    """Initialise ``task.model``'s trunk from a local ImageNet classifier
     state_dict file (the file-based counterpart of the reference's
-    ``pretrained=True`` download, pose_dla_dcn.py:380-397)."""
-    _family(task)
-    sd = {f"backbone.base.{k}": v
-          for k, v in load_torch_state_dict(path).items()
+    ``pretrained=True`` download, msra_resnet.py:239-246,
+    pose_dla_dcn.py:380-397)."""
+    prefix, trunk = _imagenet_trunk(task)
+    sd = {f"{prefix}{k}": v for k, v in load_torch_state_dict(path).items()
           if not k.startswith("fc.")}
-    missing = _missing(task.model, sd, "backbone.base.")
+    missing = sorted(k for k in trunk - set(sd)
+                     if not k.endswith("num_batches_tracked"))
     if missing:
         raise ValueError(
             f"ImageNet import left {len(missing)} backbone keys unmatched, "
             f"e.g. {missing[:5]} — wrong file for arch {task.arch!r}?")
-    unexpected = sorted(set(sd) - set(task.model.state_dict()))
+    unexpected = sorted(set(sd) - trunk)
     if unexpected:
         raise ValueError(
-            f"ImageNet import found {len(unexpected)} keys the DLA trunk does "
+            f"ImageNet import found {len(unexpected)} keys the trunk does "
             f"not have, e.g. {unexpected[:5]} — wrong file for arch "
             f"{task.arch!r}?")
     task.model.load_state_dict(sd, strict=False)
-
-
-def _family(task) -> None:
-    if task.arch.split("_")[0] != "dla":
-        raise NotImplementedError(
-            f"weight import for arch {task.arch!r} comes with the other "
-            f"backbones (ROADMAP A8); the port has the dla family")

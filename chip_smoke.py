@@ -46,7 +46,26 @@ raises and the script exits non-zero without printing a result:
    their plain versions at every DCN shape the TTA met (batch 2; bf16, and
    f32 at two); the flip TTA of one image on the card in bf16 against the
    CPU in f32; numbers: train images/s from the epoch log, ms per image of
-   both TTA modes with the device's busy share, batched images/s.
+   both TTA modes with the device's busy share, batched images/s;
+10. other backbones: res_18, res_101, resdcn_18, resdcn_101 and hourglass
+   (Hourglass-104), full width and depth, 512x512, bf16, seeded weights
+   (the DCN offset convs and the heads' inputs scaled to dla_34's scale,
+   ``scale_to_dla_inputs``): each serves 3 requests of 4 images (3
+   dcn_fwd launches per forward for resdcn, none for the others; B4
+   timing, host enqueue, device busy, peak memory), is held on one 256x256
+   image against the same weights in f32 on the CPU at phase 4's
+   tolerances (resdcn also against itself with the plain DCN on the card),
+   and takes 3 train steps with 8 boxes per image (3 launches of each DCN
+   kernel per step for resdcn; a falling loss; step timing); the hourglass
+   takes one step with its backbone rematerialised and one without, from
+   the same weights and batch (losses and BatchNorm statistics agree; both
+   peak memories); both kernels against their plain versions at
+   resdcn_101's DCN shapes (16x16 C2048->256, 32x32 C256->128, 64x64
+   C128->64; B4, bf16 and f32, phases 3 and 6's tolerances and timing);
+   ``cli.detection`` trains resdcn_18 and hourglass for 2 steps each and
+   ``cli.test --flip`` evaluates both checkpoints over 2 val images
+   (hourglass: the pad rule 127), and both kernels are held at every DCN
+   shape the resdcn TTA met.
 
 A watchdog ends a run that hangs after WATCHDOG_S seconds, with a
 traceback. The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -56,6 +75,7 @@ power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import faulthandler
 import json
 import statistics
@@ -307,8 +327,9 @@ def dcn_bound_ms(b, hw, ci, co, dtype):
             "bytes" if t_bytes >= t_ops else "operations", 1e3 * t_bytes)
 
 
-def check_kernel(dev):
-    """Phase 3: kernel vs plain at every dla_34 DCN shape, bf16 and f32."""
+def check_kernel(dev, shapes=None):
+    """Phase 3: kernel vs plain at every dla_34 DCN shape (or ``shapes``,
+    (map side, Ci, Co, layers) rows), bf16 and f32."""
     from centernet_tpu_torch.ops.dcn import deform_conv2d_reference
     from centernet_tpu_torch.ops.dcn_cuda import deform_conv2d_cuda
 
@@ -318,7 +339,7 @@ def check_kernel(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for hw, ci, co, layers in DLA34_DCN:
+    for hw, ci, co, layers in shapes or DLA34_DCN:
         for dtype in (torch.bfloat16, torch.float32):
             args = dcn_inputs(BATCH, hw, ci, co, dtype, gen, dev)
             got = deform_conv2d_cuda(*args)
@@ -387,16 +408,16 @@ def dcn_bwd_bound_ms(b, hw, ci, co, dtype):
             "bytes" if t_bytes >= t_ops else "operations", 1e3 * t_bytes)
 
 
-def check_backward_kernel(dev):
-    """Phase 6: backward kernel vs plain at every dla_34 DCN shape, bf16 and
-    f32, every output."""
+def check_backward_kernel(dev, shapes=None):
+    """Phase 6: backward kernel vs plain at every dla_34 DCN shape (or
+    ``shapes``), bf16 and f32, every output."""
     from centernet_tpu_torch.ops.dcn import deform_conv2d_backward_reference
     from centernet_tpu_torch.ops.dcn_cuda import deform_conv2d_backward_cuda
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = []
-    for hw, ci, co, layers in DLA34_DCN:
+    for hw, ci, co, layers in shapes or DLA34_DCN:
         for dtype in (torch.bfloat16, torch.float32):
             x, off, mask, w, _, r = dcn_inputs(BATCH, hw, ci, co, dtype, gen,
                                                dev)
@@ -567,8 +588,11 @@ def seed_weights(model, seed):
     a seeded draw: offset/mask convs at the input's fan-in scale with biases
     in +-1 (offsets of a cell or two), BN statistics and affine jittered, and
     head convs at a gain of 3 so that heatmap logits spread over a few units
-    and boxes over a few cells."""
+    and boxes over a few cells. The full transpose convs of the res and
+    resdcn families (normal(0.001) and a bilinear diagonal at init) are
+    drawn at their fan-in scale (in channels x 4 taps per output)."""
     from centernet_tpu_torch.models.heads import HeadConv
+    from centernet_tpu_torch.models.layers import ConvTranspose2x
     from centernet_tpu_torch.ops.dcn import DCN
 
     gen = torch.Generator().manual_seed(seed)
@@ -588,6 +612,9 @@ def seed_weights(model, seed):
                 draw(m.running_var, 0.8, 1.2)
                 draw(m.weight, 0.8, 1.2)
                 draw(m.bias, -0.1, 0.1)
+            elif isinstance(m, ConvTranspose2x):
+                lim = (3.0 / (4 * m.weight.shape[0])) ** 0.5
+                draw(m.weight, -lim, lim)
             elif isinstance(m, HeadConv):
                 for conv in (m.fc[0], m.fc[2]):
                     lim = 3.0 * (3.0 / conv.weight[0].numel()) ** 0.5
@@ -624,12 +651,14 @@ def rel_err(got, want):
 
 
 def check_slice(task, images):
-    """Phase 4 after the counted run: GPU bf16 heads and detections against
-    the same weights in f32 on the CPU."""
+    """Phase 4 after the counted run (and phase 10 for each arch): the card's
+    bf16 heads and detections against the same weights in f32 on the CPU,
+    on ``images[:1]``. Returns the measured errors."""
     from centernet_tpu_torch.ops.decode import ctdet_decode, pseudo_nms, topk
     from centernet_tpu_torch.tasks.detection import CenterNetDetection
 
-    cpu = CenterNetDetection("dla_34", dtype=torch.float32, device="cpu",
+    measured = {}
+    cpu = CenterNetDetection(task.arch, dtype=torch.float32, device="cpu",
                              seed=SEED)
     cpu.model.load_state_dict(
         {k: v.float().cpu() for k, v in task.model.state_dict().items()})
@@ -640,6 +669,7 @@ def check_slice(task, images):
     got = task.apply(img)[-1]
     for name in ("heatmap", "width_height", "regression"):
         e = rel_err(got[name], want[name])
+        measured[name] = e
         print(f"head {name}: GPU bf16 vs CPU f32 rel err {e:.3e} "
               f"(tol {HEADS_TOL:.0e}), CPU range "
               f"[{float(want[name].min()):.3f}, {float(want[name].max()):.3f}]")
@@ -675,12 +705,15 @@ def check_slice(task, images):
         other = decode_at(heads["CPU" if side == "card" else "card"], peaks)
         box_err = float((mine[:, :4] - other[:, :4]).abs().max())
         score_err = float((mine[:, 4] - other[:, 4]).abs().max())
+        measured[f"{side}_box"] = box_err
+        measured[f"{side}_score"] = score_err
         print(f"the {side}'s top-10 peaks (scores {float(mine[9, 4]):.4f}.."
               f"{float(mine[0, 4]):.4f}) decoded from both sides' heads: box "
               f"err {box_err:.3e} cells (tol {BOX_TOL}), score err "
               f"{score_err:.3e} (tol {SCORE_TOL})")
         if box_err > BOX_TOL or score_err > SCORE_TOL:
             raise RuntimeError(f"the {side}'s detections disagree")
+    return measured
 
 
 def decode_at(heads, peaks):
@@ -728,10 +761,10 @@ def image_codec():
         return None
 
 
-def make_mini_coco(root, codec):
+def make_mini_coco(root, codec, n_eval=MINI_EVAL):
     """Seeded mini-COCO under ``root``: images/{train,val}2017, annotations/
     instances_{train,val}2017.json, and annotations_eval/ with the first
-    MINI_EVAL val images. With a codec the images are written as PNG;
+    ``n_eval`` val images. With a codec the images are written as PNG;
     without one they are returned, keyed by (split, id), for
     ``InMemoryCocoDetection``. Returns (image_root, ann_root, eval_ann_root,
     images or None)."""
@@ -777,9 +810,9 @@ def make_mini_coco(root, codec):
         with open(os.path.join(ann_root, f"instances_{split}.json"), "w") as f:
             json.dump(coco, f)
         if split == "val2017":
-            few = {"images": images[:MINI_EVAL], "categories": cats,
+            few = {"images": images[:n_eval], "categories": cats,
                    "annotations": [a for a in anns
-                                   if a["image_id"] < MINI_EVAL]}
+                                   if a["image_id"] < n_eval]}
             with open(os.path.join(eval_root, "instances_val2017.json"),
                       "w") as f:
                 json.dump(few, f)
@@ -1163,6 +1196,373 @@ def run_cli_slice(dev, card):
     return out
 
 
+# --------------------------------------------------------------- phase 10 ---
+
+OTHER_ARCHS = ["res_18", "res_101", "resdcn_18", "resdcn_101", "hourglass"]
+# (map side, Ci, Co, layers): resdcn_101's 3 DCN layers at a 512x512 input
+# (resdcn_50 and _152 have the same; resdcn_18 and _34 start from 512).
+RESDCN101_DCN = [(16, 2048, 256, 1), (32, 256, 128, 1), (64, 128, 64, 1)]
+OTHER_TRAIN_STEPS = 3
+OTHER_CHECK_HW = 256  # the card-vs-CPU image
+OTHER_CLI_STEPS = 2
+OTHER_EVAL = 2
+# Head inputs are scaled to this RMS on a calibration batch
+# (``scale_to_dla_inputs``): dla_34's and resdcn's features end near it,
+# while the res and hourglass trunks, their residual sums passing BN at
+# near-identity statistics, end at an RMS of 1 to 20, which would leave the
+# gain-3 heads of ``seed_weights`` at tens of units, every heatmap score at
+# 1.0 and a box's bf16 rounding at a tenth of a cell: a check that tells
+# nothing. The same trunks feed resdcn's first DCN at an RMS of about 4,
+# which turns the offsets of a cell or two that ``seed_weights`` draws into
+# ten or more, clamped at the radius, and bf16 offsets that large round by
+# 0.03-0.06 cells: the offset convs of inputs above an RMS of 1 are scaled
+# as if their inputs had an RMS of 1.
+HEAD_INPUT_RMS = 0.1
+# Hourglass with and without remat, same weights and batch: the same bf16
+# arithmetic recomputed, so the losses agree to bf16 rounding (2**-8
+# relative) and the BN statistics, advanced once by either, to 1e-5.
+REMAT_LOSS_TOL = 2.0 ** -8
+REMAT_STATS_TOL = 1e-5
+
+
+def n_dcn_layers(arch):
+    return 3 if arch.startswith("resdcn") else 0
+
+
+def backbone_input(task, images):
+    """NHWC uint8 ``images`` as the backbone takes them."""
+    x = task.prep_images(images).permute(0, 3, 1, 2)
+    return x.contiguous(memory_format=torch.channels_last).to(task.dtype)
+
+
+@torch.inference_mode()
+def input_rms(task, images, modules):
+    """RMS of each module's input in one forward of the backbone."""
+    rms = {}
+
+    def pre(mod, inp):
+        rms[mod] = float(inp[0].float().pow(2).mean().sqrt())
+
+    handles = [m.register_forward_pre_hook(pre) for m in modules]
+    try:
+        feats = task.model.backbone(backbone_input(task, images))
+    finally:
+        for h in handles:
+            h.remove()
+    return rms, [float(f.float().pow(2).mean().sqrt()) for f in feats]
+
+
+@torch.no_grad()
+def scale_to_dla_inputs(task, images):
+    """Scale the weights ``seed_weights`` drew for inputs of dla_34's scale
+    to what this backbone feeds them on ``images`` (NHWC uint8): each DCN's
+    offset/mask conv as if an input above an RMS of 1 had an RMS of 1, so
+    that the offsets are the cell or two that ``seed_weights`` intends;
+    then each head's
+    first conv by HEAD_INPUT_RMS / the RMS of its stack's features. Returns
+    (the DCN inputs' RMS, the features' RMS per stack)."""
+    from centernet_tpu_torch.ops.dcn import DCN
+
+    dcns = [m for m in task.model.modules() if isinstance(m, DCN)]
+    dcn_rms, _ = input_rms(task, images, dcns)
+    for m in dcns:
+        m.conv_offset_mask.weight.mul_(1.0 / max(1.0, dcn_rms[m]))
+    _, rms = input_rms(task, images, [])
+    for head, r in zip(task.model.heads, rms):
+        for name in head.names:
+            getattr(head, name).fc[0].weight.mul_(HEAD_INPUT_RMS / r)
+    return [dcn_rms[m] for m in dcns], rms
+
+
+@contextlib.contextmanager
+def plain_dcn_on_card():
+    """While active, the DCN calls on the card run the plain PyTorch
+    versions (on the card's tensors) instead of the kernels: the model-level
+    reference of the kernels. The launch counts do not move."""
+    from centernet_tpu_torch.ops import dcn, dcn_cuda
+
+    kernels = dcn_cuda.deform_conv2d_cuda, dcn_cuda.deform_conv2d_backward_cuda
+    dcn_cuda.deform_conv2d_cuda = (
+        lambda x, off, mask, w, b, r: dcn.deform_conv2d_reference(
+            x, off, mask, w, b))
+    dcn_cuda.deform_conv2d_backward_cuda = (
+        lambda x, off, mask, w, g, r: dcn.deform_conv2d_backward_reference(
+            x, off, mask, w, g))
+    try:
+        yield
+    finally:
+        (dcn_cuda.deform_conv2d_cuda,
+         dcn_cuda.deform_conv2d_backward_cuda) = kernels
+
+
+def check_kernels_in_model(task, img):
+    """resdcn: the bf16 model's heads on the card with the DCN kernels
+    against the same model with the plain DCN on the card, at phase 4's
+    head tolerance. Returns the errors."""
+    got = task.apply(img)[-1]
+    with plain_dcn_on_card():
+        want = task.apply(img)[-1]
+    errs = {k: rel_err(got[k], want[k].float().cpu()) for k in want}
+    print(f"{task.arch}: heads with the DCN kernels vs the plain DCN, both "
+          f"bf16 on the card: rel err " + ", ".join(
+              f"{k} {e:.3e}" for k, e in errs.items())
+          + f" (tol {HEADS_TOL:.0e})")
+    if max(errs.values()) > HEADS_TOL:
+        raise RuntimeError(f"{task.arch}: the kernels move the model's heads "
+                           f"beyond the tolerance: {errs}")
+    return errs
+
+
+def serve_other(task, rng, card):
+    """Phase 10 serving for ``task.arch``: REQUESTS requests of BATCH
+    512x512 images through ``predict_batch`` with the DCN launches counted
+    (3 per forward for resdcn, none otherwise) and the DCN shapes recorded,
+    then the B4 forward + decode timed."""
+    from centernet_tpu_torch.ops import dcn_cuda
+    from centernet_tpu_torch.tasks.detection import identity_metas
+
+    arch = task.arch
+    n_dcn = n_dcn_layers(arch)
+    requests = [rng.integers(0, 256, (BATCH, HW, HW, 3), dtype=np.uint8)
+                for _ in range(REQUESTS)]
+    dcn_rms, rms = scale_to_dla_inputs(task, requests[0])
+    print(f"{arch}: DCN input RMS {[f'{r:.3f}' for r in dcn_rms]} (offset "
+          f"convs of those above 1 scaled by 1 / RMS); feature RMS per stack "
+          f"{[f'{r:.3f}' for r in rms]} (head inputs scaled to "
+          f"{HEAD_INPUT_RMS})")
+    seen = {"shapes": collections.Counter(), "offset_absmax": 0.0}
+    handles = dcn_shape_hooks(task.model, seen)
+    dcn_cuda.launch_counts.clear()
+    try:
+        results = [task.predict_batch(imgs, identity_metas(BATCH))
+                   for imgs in requests]
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    launches = dcn_cuda.launch_counts["dcn_fwd"]
+    print(f"{arch}: served {REQUESTS} requests of {BATCH} images; dcn_fwd "
+          f"launches {launches} (want {n_dcn * REQUESTS})")
+    if launches != n_dcn * REQUESTS:
+        raise RuntimeError(f"{arch}: {launches} dcn_fwd launches, want "
+                           f"{n_dcn * REQUESTS}")
+    if n_dcn:
+        ci0 = 2048 if arch == "resdcn_101" else 512
+        want = collections.Counter({(HW // 32, ci0, 256): REQUESTS,
+                                    (HW // 16, 256, 128): REQUESTS,
+                                    (HW // 8, 128, 64): REQUESTS})
+        if seen["shapes"] != want or seen["offset_absmax"] < 1.0:
+            raise RuntimeError(f"{arch}: DCN shapes {dict(seen['shapes'])}, "
+                               f"offsets up to {seen['offset_absmax']:.2f}")
+        print(f"{arch}: DCN shapes {sorted(seen['shapes'])}, offsets before "
+              f"the clamp up to {seen['offset_absmax']:.2f} cells")
+    for per_request in results:
+        for res in per_request:
+            dets = np.concatenate(list(res.values()), 0)
+            if dets.shape != (100, 5) or not np.isfinite(dets).all():
+                raise RuntimeError(f"{arch}: bad detections {dets.shape}")
+    imgs = torch.from_numpy(requests[0]).to(DEVICE)
+    dets = task.infer_decode(imgs)
+    if tuple(dets.shape) != (BATCH, 100, 6) or not bool(
+            torch.isfinite(dets).all()):
+        raise RuntimeError(f"{arch}: infer_decode gave {tuple(dets.shape)}")
+    for _ in range(2):
+        task.infer_decode(imgs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: task.infer_decode(imgs), 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_ms = enqueue_ms(lambda: task.infer_decode(imgs), 10)
+    busy = device_busy(lambda: task.infer_decode(imgs), 5)
+    print(f"{arch} serve B{BATCH}: {ms:.3f} ms per batch (median of 10), "
+          f"{1e3 * BATCH / ms:.1f} img/s; host enqueue {host_ms:.3f} ms; "
+          f"device busy {busy['busy_ms']:.3f} ms ({busy['launches']:.0f} "
+          f"kernels), idle {1 - busy['busy_ms'] / ms:.1%}; dcn_fwd "
+          f"{busy['dcn_ms']:.3f} ms; peak memory {peak:.2f} GiB [{card}]")
+    print("  top kernels (ms per batch): " + "; ".join(
+        f"{name[:60]} {t:.3f}" for name, t in busy["top"][:5]))
+    return {"launches": launches, "ms": ms, "host_ms": host_ms,
+            "busy_ms": busy["busy_ms"], "kernels": busy["launches"],
+            "dcn_ms": busy["dcn_ms"], "peak_gib": peak,
+            "dcn_input_rms": dcn_rms, "head_input_rms": rms}
+
+
+def train_other(task, rng, card):
+    """Phase 10 training for ``task.arch``: OTHER_TRAIN_STEPS bf16 steps of
+    BATCH images with BOXES boxes each, the DCN launches counted (3 of each
+    kernel per step for resdcn); the loss must be finite and fall. Then the
+    step timed."""
+    from centernet_tpu_torch.ops import dcn_cuda
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    arch = task.arch
+    n_dcn = n_dcn_layers(arch)
+    images, target = train_batch(rng, BATCH)
+    step = make_train_step(task, task.configure_optimizer(1))
+    losses = []
+    dcn_cuda.launch_counts.clear()
+    for i in range(OTHER_TRAIN_STEPS):
+        before = dict(dcn_cuda.launch_counts)
+        stats = {k: float(v) for k, v in step(images, target).items()}
+        grew = {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
+                for k in ("dcn_fwd", "dcn_bwd")}
+        if grew != {"dcn_fwd": n_dcn, "dcn_bwd": n_dcn}:
+            raise RuntimeError(f"{arch} step {i}: DCN launches {grew}, want "
+                               f"{n_dcn} of each")
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise RuntimeError(f"{arch} step {i}: non-finite loss {stats}")
+        losses.append(stats["loss"])
+    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    print(f"{arch} train: losses {[round(v, 4) for v in losses]}; DCN "
+          f"launches {launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{arch}: the loss did not fall: {losses}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(images, target), 10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_ms = enqueue_ms(lambda: step(images, target), 5)
+    busy = device_busy(lambda: step(images, target), 3)
+    print(f"{arch} train B{BATCH}: {ms:.3f} ms per step (median of 10), "
+          f"{1e3 * BATCH / ms:.1f} img/s; host enqueue {host_ms:.3f} ms; "
+          f"device busy {busy['busy_ms']:.3f} ms ({busy['launches']:.0f} "
+          f"kernels), idle {1 - busy['busy_ms'] / ms:.1%}; dcn_fwd "
+          f"{busy['dcn_ms']:.3f} ms, dcn_bwd {busy['dcn_bwd_ms']:.3f} ms; "
+          f"peak memory {peak:.2f} GiB [{card}]")
+    print("  top kernels (ms per step): " + "; ".join(
+        f"{name[:60]} {t:.3f}" for name, t in busy["top"][:5]))
+    return {"launches": launches, "losses": losses, "ms": ms,
+            "host_ms": host_ms, "busy_ms": busy["busy_ms"],
+            "kernels": busy["launches"], "dcn_fwd_ms": busy["dcn_ms"],
+            "dcn_bwd_ms": busy["dcn_bwd_ms"], "peak_gib": peak}
+
+
+def check_remat(task, rng, card):
+    """Phase 10, hourglass: one bf16 B4 step with the backbone
+    rematerialised and one without, from the same weights and batch; the
+    losses and every BN statistic after the step agree, and both peak
+    memories are printed."""
+    from centernet_tpu_torch.ops.modules import BatchNorm2d
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    if not task.model.remat:
+        raise RuntimeError(f"{task.arch}: remat is off")
+    images, target = train_batch(rng, BATCH)
+    start = {k: v.clone() for k, v in task.model.state_dict().items()}
+    out = {}
+    try:
+        for remat in (True, False):
+            task.model.load_state_dict(start)
+            task.model.remat = remat
+            step = make_train_step(task, task.configure_optimizer(1))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            calls = []
+            hook = task.model.backbone.register_forward_pre_hook(
+                lambda *_: calls.append(1))
+            try:
+                loss = float(step(images, target)["loss"])
+            finally:
+                hook.remove()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if len(calls) != (2 if remat else 1):
+                raise RuntimeError(f"remat={remat}: the backbone ran "
+                                   f"{len(calls)} times in the step")
+            stats = {n: v.clone() for n, v in task.model.state_dict().items()
+                     if n.endswith(("running_mean", "running_var"))}
+            out[remat] = (loss, stats, peak)
+            print(f"hourglass step {'with' if remat else 'without'} remat "
+                  f"(backbone forwards: {len(calls)}): loss {loss:.6f}, peak "
+                  f"memory {peak:.2f} GiB [{card}]")
+    finally:
+        task.model.remat = True
+    (l1, s1, p1), (l0, s0, p0) = out[True], out[False]
+    loss_err = abs(l1 - l0) / abs(l0)
+    stats_err = max(float((s1[n] - s0[n]).abs().max())
+                    / max(1e-30, float(s0[n].abs().max())) for n in s0)
+    moved = sum(1 for n in s0 if not torch.equal(s0[n], start[n]))
+    n_norms = sum(1 for m in task.model.modules()
+                  if isinstance(m, BatchNorm2d))
+    print(f"remat vs none: loss rel err {loss_err:.3e} (tol "
+          f"{REMAT_LOSS_TOL:.1e}); BN statistics rel err {stats_err:.3e} "
+          f"(tol {REMAT_STATS_TOL:.0e}) over {len(s0)} tensors of "
+          f"{n_norms} BatchNorms ({moved} moved by the step)")
+    if loss_err > REMAT_LOSS_TOL or stats_err > REMAT_STATS_TOL:
+        raise RuntimeError("hourglass with and without remat disagree")
+    if moved < len(s0) // 2:
+        raise RuntimeError(f"only {moved} BN statistics moved in the step")
+    return {"loss_rel_err": loss_err, "stats_rel_err": stats_err,
+            "peak_gib_remat": p1, "peak_gib_no_remat": p0}
+
+
+def run_other_clis(dev, card):
+    """Phase 10 CLIs on a seeded mini-COCO: ``cli.detection`` trains
+    resdcn_18 and hourglass for OTHER_CLI_STEPS steps each, ``cli.test
+    --flip`` evaluates each checkpoint over OTHER_EVAL val images (the
+    hourglass's pad rule 127); the DCN launches of each run, and both
+    kernels at every DCN shape the resdcn TTA met."""
+    import os
+    import tempfile
+
+    from centernet_tpu_torch.cli import detection as cli_det
+    from centernet_tpu_torch.cli import test as cli_tst
+    from centernet_tpu_torch.utils.checkpoint import load_checkpoint_hparams
+
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_other_") as root:
+        codec = image_codec()
+        image_root, ann_root, eval_root, kept = make_mini_coco(
+            root, codec, n_eval=OTHER_EVAL)
+        if kept is not None:
+            cli_det.CocoDetection = cli_tst.CocoDetection = in_memory_coco(
+                kept)
+        for arch in ("resdcn_18", "hourglass"):
+            n_dcn = n_dcn_layers(arch)
+            runs = os.path.join(root, arch)
+            args = [image_root, ann_root, "--arch", arch, "--input_size",
+                    str(HW), "--batch_size", str(BATCH), "--precision",
+                    "bf16", "--limit_train_batches", str(OTHER_CLI_STEPS),
+                    "--limit_val_batches", "1", "--num_workers", "2",
+                    "--worker_mode", "thread", "--max_epochs", "1",
+                    "--skip_test", "--default_root_dir", runs]
+            trainer, secs, launches = counted(
+                lambda: cli_det.cli_main(args), collections.Counter())
+            expect_launches(f"cli train {arch}", launches,
+                            n_dcn * (OTHER_CLI_STEPS + 1),
+                            n_dcn * OTHER_CLI_STEPS)
+            train_launches = launches
+            last = os.path.join(runs, "checkpoints", "last")
+            hp = load_checkpoint_hparams(last)
+            if trainer.state.step != OTHER_CLI_STEPS or hp["arch"] != arch:
+                raise RuntimeError(f"cli train {arch}: step "
+                                   f"{trainer.state.step}, sidecar {hp}")
+            print(f"cli train {arch}: {OTHER_CLI_STEPS} steps in {secs:.1f} s "
+                  f"(cold) [{card}]")
+            del trainer
+            seen = collections.Counter()
+            stats, secs, launches = counted(lambda: cli_tst.cli_test(
+                ["detection", image_root, eval_root, "--checkpoint", last,
+                 "--flip"]), seen)
+            expect_launches(f"cli test {arch} flip", launches,
+                            n_dcn * OTHER_EVAL, 0)
+            if not stats or not all(np.isfinite(v) for v in stats.values()):
+                raise RuntimeError(f"cli test {arch}: stats {stats}")
+            print(f"cli test {arch} flip: {secs:.2f} s for {OTHER_EVAL} "
+                  f"images (cold); AP {stats}")
+            out["launches"][arch] = {"cli_train": train_launches,
+                                     "tta": launches}
+            if n_dcn:
+                shapes = sorted({k[1:] for k in seen},
+                                key=lambda sh: sh[0] * sh[1])
+                print(f"{arch} TTA met {len(shapes)} DCN shapes at B2: "
+                      f"{shapes}")
+                rows, errs = check_kernels_at_shapes(shapes, dev)
+                out["tta_shapes"] = {"shapes": len(shapes),
+                                     "max_abs_err": errs}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1326,7 +1726,42 @@ def main() -> int:
     cli = run_cli_slice(dev, card)
     cl = cli["launches"]
 
-    def summary(name, src, tpu, kernel_rows, launches_by_path, ms):
+    phase("10 other backbones: res_18, res_101, resdcn_18, resdcn_101 and "
+          "hourglass detection serving and train step, 512x512, bf16; the "
+          "kernels at resdcn_101's DCN shapes; the CLIs")
+    other = {}
+    for arch in OTHER_ARCHS:
+        t0 = time.perf_counter()
+        task = CenterNetDetection(arch, dtype=torch.bfloat16, device=dev,
+                                  seed=SEED)
+        seed_weights(task.model, SEED + 1)
+        n_params = sum(p.numel() for p in task.model.parameters())
+        print(f"{arch}: {n_params / 1e6:.2f} M parameters (f32), built and "
+              f"seeded in {time.perf_counter() - t0:.1f} s")
+        res = {"params": n_params, "serve": serve_other(task, rng, card)}
+        img = rng.integers(0, 256, (1, OTHER_CHECK_HW, OTHER_CHECK_HW, 3),
+                           dtype=np.uint8)
+        res["card_vs_cpu"] = check_slice(task, img)
+        if n_dcn_layers(arch):
+            res["kernels_in_model"] = check_kernels_in_model(task, img)
+        res["train"] = train_other(task, rng, card)
+        if task.model.remat:
+            res["remat"] = check_remat(task, rng, card)
+        other[arch] = res
+        del task
+        torch.cuda.empty_cache()
+        print(f"{arch}: {time.perf_counter() - t0:.1f} s in all")
+    other_rows = check_kernel(dev, RESDCN101_DCN)
+    other_bwd_rows = check_backward_kernel(dev, RESDCN101_DCN)
+    for r in other_rows + other_bwd_rows:
+        r["model"] = "resdcn_101"
+    for r in rows + bwd_rows:
+        r["model"] = "dla_34"
+    other_cli = run_other_clis(dev, card)
+    ol = other_cli["launches"]
+
+    def summary(name, src, tpu, kernel_rows, launches_by_path, ms,
+                more_rows):
         bf16 = [r for r in kernel_rows if r["dtype"] == "bfloat16"]
         by_bytes = sum(r["bound_ms"] * r["layers"] for r in bf16
                        if r["bound_by"] == "bytes")
@@ -1335,14 +1770,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": launches_by_path["train"],
             "launches_by_path": launches_by_path,
-            "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in kernel_rows + more_rows),
             # per B4 bf16 pass of the model: the 16 layers summed
             "ms": ms,
             "plain_ms": sum(r["plain_ms"] * r["layers"] for r in bf16),
             "bound_ms": bound,
             "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
             "library_ms": None,
-            "per_shape": kernel_rows,
+            # dla_34's 7 shapes (summed above), then resdcn_101's 3
+            "per_shape": kernel_rows + more_rows,
         }
 
     def by_path(name, serve, train):
@@ -1350,18 +1787,29 @@ def main() -> int:
                 "cli_train": cl["cli_train"][name],
                 "cli_resume": cl["cli_resume"][name],
                 "tta": cl["test_flip"][name] + cl["test_flip_multi_scale"][name],
-                "batched_eval": cl["test_batched"][name]}
+                "batched_eval": cl["test_batched"][name],
+                "resdcn_18_serve": other["resdcn_18"]["serve"]["launches"]
+                if name == "dcn_fwd" else 0,
+                "resdcn_18_train": other["resdcn_18"]["train"]["launches"][name],
+                "resdcn_101_serve": other["resdcn_101"]["serve"]["launches"]
+                if name == "dcn_fwd" else 0,
+                "resdcn_101_train":
+                    other["resdcn_101"]["train"]["launches"][name],
+                "resdcn_18_cli_train": ol["resdcn_18"]["cli_train"][name],
+                "resdcn_18_tta": ol["resdcn_18"]["tta"][name]}
 
     kernels = [
         summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
                 by_path("dcn_fwd", launches, train_launches["dcn_fwd"]),
-                dcn_ms),
+                dcn_ms, other_rows),
         summary("dcn_bwd", BWD_KERNEL_SRC, BWD_KERNEL_TPU, bwd_rows,
-                by_path("dcn_bwd", 0, train_launches["dcn_bwd"]), bwd_ms),
+                by_path("dcn_bwd", 0, train_launches["dcn_bwd"]), bwd_ms,
+                other_bwd_rows),
     ]
     tta = cli["tta_shapes"]
     for k, which in zip(kernels, ("fwd", "bwd")):
-        k["max_abs_err"] = max(k["max_abs_err"], tta["max_abs_err"][which])
+        k["max_abs_err"] = max(k["max_abs_err"], tta["max_abs_err"][which],
+                               other_cli["tta_shapes"]["max_abs_err"][which])
         k["tta_shapes"] = {"shapes": tta["shapes"], "ragged": tta["ragged"],
                            "max_abs_err": tta["max_abs_err"][which]}
     kernels[0]["tta_shapes"].update(ms=tta["fwd_ms"],
@@ -1373,6 +1821,8 @@ def main() -> int:
         "train_images_per_sec": cli["train_images_per_sec"],
         "resume_images_per_sec": cli["resume_images_per_sec"],
         "evals": cli["evals"], "launches": cl}}))
+    print(json.dumps({"other_backbones": other,
+                      "other_clis": other_cli}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
         bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
         print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "

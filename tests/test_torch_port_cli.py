@@ -100,7 +100,8 @@ def test_test_cli_rebuilds_the_task_from_the_sidecar(trained):
     image_root, ann_root = trained["data"]
     common = ["detection", image_root, ann_root, "--checkpoint",
               trained["last"], "--precision", "f32", "--device", "cpu"]
-    # the port has no res_18: only the sidecar's dla_34 can have run
+    # the flag says res_18, the sidecar dla_34: a res_18 task could not
+    # restore the dla_34 checkpoint, so only the sidecar's arch can have run
     stats = cli_test(common + ["--arch", "res_18", "--flip"])
     assert sorted(stats) == sorted(
         f"test/flip_{k}" for k in ("ap", "ap_50", "ap_75", "ap_S", "ap_M",

@@ -8,9 +8,10 @@ the port and this file do not need):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Shapes are dla_34's 16 DCN layers at a 512x512 input, batch 2 (and 8 and 16
-at 128x128, where the backward's split over the pixels changes), in bf16 and
-f32, with offsets drawn across +-(r+1), clamped as the module clamps them and
+Shapes are dla_34's 16 DCN layers at a 512x512 input and the first DCN layer
+of resdcn_50/101/152 there (16x16, 2048 -> 256 channels), batch 2 (and 8 and
+16 at 128x128, where the backward's split over the pixels changes), in bf16
+and f32, with offsets drawn across +-(r+1), clamped as the module clamps them and
 some exactly on -r and r - 1/64; every call passes the clamp radius r, which
 sizes the window of x that the kernels stage. Tolerances, as max |got -
 want| over max(1, max |want|):
@@ -43,9 +44,10 @@ from torch_port_common import tta_dcn_shapes
 
 pytestmark = pytest.mark.cuda
 
-# (map side, Ci, Co): the 7 shapes of dla_34's DCN layers at 512x512.
+# (map side, Ci, Co): the 7 shapes of dla_34's DCN layers at 512x512, and
+# resdcn_50/101/152's first (its other two are dla_34's).
 SHAPES = [(128, 64, 64), (64, 128, 64), (64, 128, 128), (32, 256, 128),
-          (32, 256, 256), (32, 256, 64), (16, 512, 256)]
+          (32, 256, 256), (32, 256, 64), (16, 512, 256), (16, 2048, 256)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 BWD_NAMES = ("dx", "dty", "dtx", "dmask", "dw")

@@ -6,8 +6,9 @@ shared memory, the channel chunk, the splits, the grids and the dynamic
 shared memory. The kernels only run on a GPU, but the plan's promises can be
 checked anywhere:
 
-* every configuration the models use (dla_34's 7 DCN shapes and res_18's 3
-  at 512x512, batches 4, 8, 16), the ragged shapes of the card tests and the
+* every configuration the models use (dla_34's 7 DCN shapes, resdcn_18's 3
+  and resdcn_101's 3, the first from 2048 channels, at 512x512, batches 4,
+  8, 16), the ragged shapes of the card tests and the
   35 non-square maps that flip + multi-scale TTA feeds dla_34's DCN layers
   for a 640x480 image (batch 2, sides such as 12, 20 and 28 that the 8x8
   tile does not divide) fit in a block's 232,448 bytes of shared memory, in
@@ -37,12 +38,15 @@ from tests.torch_port_common import tta_dcn_shapes
 DLA34 = [(128, 64, 64), (64, 128, 64), (64, 128, 128), (32, 256, 128),
          (32, 256, 256), (32, 256, 64), (16, 512, 256)]
 RES18 = [(16, 512, 256), (32, 256, 128), (64, 128, 64)]
+RES101 = [(16, 2048, 256), (32, 256, 128), (64, 128, 64)]
 # (B, H, W, Ci, Co) of tests/test_torch_port_cuda.py's ragged-edge cases
 RAGGED = [(3, 5, 13, 24, 40), (1, 2, 2, 8, 72), (2, 9, 17, 136, 8),
           (1, 6, 7, 5, 3)]
 MODEL_CASES = (
     [("dla_34", b, hw, hw, ci, co) for hw, ci, co in DLA34 for b in (4, 8, 16)]
     + [("res_18", b, hw, hw, ci, co) for hw, ci, co in RES18
+       for b in (4, 8, 16)]
+    + [("resdcn_101", b, hw, hw, ci, co) for hw, ci, co in RES101
        for b in (4, 8, 16)])
 # flip TTA at the five scales of a 640x480 image, bucket 128
 TTA = [("tta", 2, h, w, ci, co) for h, w, ci, co in tta_dcn_shapes()]
@@ -114,7 +118,8 @@ def test_grids_are_not_empty_and_fill_the_card_at_model_shapes(case, dtype):
     # the dW launch: waves of two blocks per SM, a block walking its share of
     # the tiles and flushing once; the splits are the fewest that make the
     # product of the two least, and one wave at the models' bf16 B4 and B8
-    # shapes (the train batches)
+    # shapes (the train batches) wherever the (tap, chunk) pairs alone fit
+    # in one (all but resdcn_101's 16x16 C2048: 288 pairs)
     pairs, splits = bwd["dw_grid"]
 
     def cost(s):
@@ -123,7 +128,8 @@ def test_grids_are_not_empty_and_fill_the_card_at_model_shapes(case, dtype):
     best = min(cost(s) for s in range(1, min(tiles, 64) + 1))
     assert cost(splits) == best
     assert all(cost(s) > best for s in range(1, splits))
-    if name != "ragged" and plan["fast"] and b <= 8:
+    if (name != "ragged" and plan["fast"] and b <= 8
+            and pairs <= 2 * H100_SMS):
         assert pairs * splits <= 2 * H100_SMS
 
 

@@ -40,7 +40,8 @@ bad = sorted(m for m in sys.modules
                                     "centernet_tpu"))
 want = {"centernet_tpu_torch." + m for m in (
     "cli.common", "cli.detection", "cli.test", "data.coco", "data.loader",
-    "data.transforms", "entry", "ops.nms", "parallel.trainer",
+    "data.transforms", "entry", "models.hourglass", "models.resnet",
+    "models.resnet_dcn", "ops.nms", "parallel.trainer",
     "utils.checkpoint", "utils.coco_eval", "utils.logging",
     "utils.profiling", "utils.torch_import")}
 assert want <= set(names), sorted(want - set(names))

@@ -152,3 +152,23 @@ def tta_dcn_shapes(img_hw=(480, 640), scales=MULTI_SCALES, bucket=128):
             if shape not in shapes:
                 shapes.append(shape)
     return shapes
+
+
+# A narrow 2-stack hourglass for the CPU tests: depth 2, 16/24 channels.
+NARROW_HOURGLASS = dict(num_stacks=2, n=2, dims=(16, 16, 24),
+                        modules=(2, 2, 2), cnv_dim=16)
+
+
+def narrow_hourglass(monkeypatch):
+    """Make both packages' tasks build the narrow hourglass for the arch
+    "hourglass" (their ``create_model`` as the tasks see it)."""
+    from centernet_tpu.models.hourglass import HourglassNet as JaxHourglass
+    from centernet_tpu.tasks import base as jax_base
+
+    from centernet_tpu_torch.models.hourglass import HourglassNet
+    from centernet_tpu_torch.tasks import base as torch_base
+
+    monkeypatch.setattr(jax_base, "create_model", lambda arch, dtype:
+                        JaxHourglass(**NARROW_HOURGLASS, dtype=dtype))
+    monkeypatch.setattr(torch_base, "create_model", lambda arch, dtype:
+                        HourglassNet(**NARROW_HOURGLASS, dtype=dtype))
