@@ -11,7 +11,8 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     # Lazy re-exports so importing the package builds nothing.
-    if name in ("CenterNet", "CenterNetDetection", "CenterNetModel"):
+    if name in ("CenterNet", "CenterNetDetection", "CenterNetModel",
+                "CenterNetMultiPose"):
         from . import tasks
 
         return getattr(tasks, name)
@@ -24,4 +25,4 @@ def __getattr__(name):
 
 
 __all__ = ["CenterNet", "CenterNetDetection", "CenterNetModel",
-           "create_model"]
+           "CenterNetMultiPose", "create_model"]

@@ -20,6 +20,15 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
         help="backbone architecture: res_18 | res_101 | resdcn_18 | "
         "resdcn_101 | dla_34 | hourglass",
     )
+    parser.add_argument(
+        "--dcn_radius", type=int, default=4,
+        help="DCN offset clamp radius in cells (the JAX package's "
+        "CENTERNET_TPU_DCN_RADIUS); capped at the map side - 1")
+    parser.add_argument(
+        "--dcn_radius_fine", type=radius_fine, default=2,
+        help="DCN clamp radius on maps of 96 cells or more (the JAX "
+        "package's CENTERNET_TPU_DCN_RADIUS_FINE); 0, off or none clamps "
+        "every map at --dcn_radius")
     parser.add_argument("--learning_rate", type=float, default=25e-5)
     parser.add_argument("--learning_rate_milestones", default="90,120")
     parser.add_argument(
@@ -95,6 +104,18 @@ def add_data_args(parser: argparse.ArgumentParser) -> None:
         "--input_size", type=int, default=512,
         help="square training resolution (reference trains at 512)",
     )
+
+
+def radius_fine(spec: str) -> int:
+    """``--dcn_radius_fine``: an int, or off / none (0: off)."""
+    return 0 if spec.strip().lower() in ("", "off", "none") else int(spec)
+
+
+def model_kwargs(args) -> dict:
+    """The task arguments that ``add_model_args``' flags set."""
+    return {"dcn_radius": args.dcn_radius,
+            "dcn_radius_fine": args.dcn_radius_fine,
+            "dtype": DTYPES[args.precision], "device": args.device}
 
 
 def parse_milestones(spec: str) -> List[int]:

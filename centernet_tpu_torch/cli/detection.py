@@ -34,8 +34,8 @@ from ..tasks.detection import CenterNetDetection
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.torch_import import (load_imagenet_backbone,
                                   load_legacy_centernet_weights)
-from .common import (DTYPES, add_data_args, add_model_args, add_trainer_args,
-                     check_num_devices, parse_milestones)
+from .common import (add_data_args, add_model_args, add_trainer_args,
+                     check_num_devices, model_kwargs, parse_milestones)
 
 
 def build_pipelines(task, input_size: int = 512, host_normalize: bool = False):
@@ -80,8 +80,7 @@ def cli_main(argv=None):
         args.arch,
         learning_rate=args.learning_rate,
         learning_rate_milestones=parse_milestones(args.learning_rate_milestones),
-        dtype=DTYPES[args.precision],
-        device=args.device,
+        **model_kwargs(args),
     )
 
     train_transform, valid_transform = build_pipelines(

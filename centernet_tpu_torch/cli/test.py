@@ -1,14 +1,18 @@
 """Eval-only CLI, PyTorch port of ``centernet_tpu/cli/test.py`` (reference:
 centernet_test.py cli_test, :20-84).
 
-    python -m centernet_tpu_torch.cli.test detection IMAGES ANNOTATIONS \\
-        --checkpoint runs/checkpoints/last --flip [--multi_scale] \\
-        [--batched --eval_batch_size 16] [--device cpu]
+    python -m centernet_tpu_torch.cli.test {detection,multi_pose} IMAGES \\
+        ANNOTATIONS --checkpoint runs/checkpoints/last --flip \\
+        [--multi_scale] [--tta_bucket 0] [--batched --eval_batch_size 16] \\
+        [--device cpu]
 
 Restores a checkpoint (the task is rebuilt from its sidecar's hparams, so
-``--arch`` need not be repeated) or imports legacy CenterNet weights, and
-scores the val set to COCO AP through per-image TTA (``--flip``,
-``--multi_scale``) or the batched fixed-shape path (``--batched``).
+``--arch`` and the DCN radii need not be repeated) or imports legacy
+CenterNet weights, and scores the val set to COCO AP through per-image TTA
+(``--flip``, ``--multi_scale``) or the batched fixed-shape path
+(``--batched``). Detection reads ``instances_val2017.json`` and logs box
+AP; pose reads ``person_keypoints_val2017.json`` and logs keypoint AP
+(``kp_``) and box AP (``bbox_``) of the same detections.
 """
 
 from __future__ import annotations
@@ -20,22 +24,23 @@ from ..data.coco import CocoDetection
 from ..parallel.trainer import Trainer
 from ..tasks import task_from_hparams
 from ..tasks.detection import CenterNetDetection
+from ..tasks.multi_pose import CenterNetMultiPose
 from ..utils.checkpoint import load_checkpoint_hparams, restore_checkpoint
 from ..utils.coco_eval import CocoEvaluator
-from .common import DTYPES, add_model_args
 from ..utils.torch_import import load_legacy_centernet_weights
+from .common import DTYPES, add_model_args, model_kwargs
 from .detection import eval_images
 
-TASKS = {"detection": CenterNetDetection}
-# tasks the JAX package has and the port does not yet, with their item
-LATER = {"multi_pose": "ROADMAP A9"}
+TASKS = {"detection": CenterNetDetection, "multi_pose": CenterNetMultiPose}
+ANNOTATIONS = {"detection": "instances_val2017.json",
+               "multi_pose": "person_keypoints_val2017.json"}
 
 MULTI_SCALES = [0.5, 0.75, 1.0, 1.25, 1.5]  # reference centernet_test.py
 
 
 def cli_test(argv=None):
     parser = argparse.ArgumentParser("centernet_tpu_torch test")
-    parser.add_argument("task", choices=list(TASKS) + list(LATER))
+    parser.add_argument("task", choices=list(TASKS))
     parser.add_argument("image_root")
     parser.add_argument("annotation_root")
     add_model_args(parser)
@@ -43,6 +48,11 @@ def cli_test(argv=None):
     parser.add_argument("--pretrained_weights_path", default=None)
     parser.add_argument("--flip", action="store_true")
     parser.add_argument("--multi_scale", action="store_true")
+    parser.add_argument(
+        "--tta_bucket", type=int, default=128,
+        help="round TTA inputs up to a multiple of this many pixels after "
+        "the reference's pad rule (the JAX package's "
+        "CENTERNET_TPU_TTA_BUCKET); 0 keeps the reference's exact geometry")
     parser.add_argument(
         "--batched", action="store_true",
         help="evaluate through the batched fixed-shape serving path "
@@ -63,9 +73,6 @@ def cli_test(argv=None):
     parser.add_argument("--export_size", type=int, default=512)
     args = parser.parse_args(argv)
 
-    if args.task in LATER:
-        raise SystemExit(f"task {args.task!r} comes to the port with "
-                         f"{LATER[args.task]}")
     if args.spatial > 1 or args.export_serving:
         raise SystemExit("--spatial and --export_serving come to the port "
                          "with ROADMAP A11")
@@ -75,8 +82,8 @@ def cli_test(argv=None):
             "--flip/--multi_scale or use the TTA loop")
 
     tta = dict(test_scales=MULTI_SCALES if args.multi_scale else None,
-               test_flip=args.flip, dtype=DTYPES[args.precision],
-               device=args.device)
+               test_flip=args.flip, tta_bucket=args.tta_bucket,
+               dtype=DTYPES[args.precision], device=args.device)
     # self-describing checkpoints: the sidecar's hparams rebuild the task
     # (reference: Lightning load_from_checkpoint, centernet_test.py:72-74)
     meta_hp = (load_checkpoint_hparams(args.checkpoint)
@@ -92,11 +99,11 @@ def cli_test(argv=None):
                 f"'{args.task}' was requested ({expected})")
         task = task_from_hparams(meta_hp, **tta)
     else:
-        task = TASKS[args.task](args.arch, **tta)
+        task = TASKS[args.task](args.arch, **{**model_kwargs(args), **tta})
 
     coco_val = CocoDetection(
         os.path.join(args.image_root, "val2017"),
-        os.path.join(args.annotation_root, "instances_val2017.json"),
+        os.path.join(args.annotation_root, ANNOTATIONS[args.task]),
     )
     trainer = Trainer(task)
     trainer.init_state()
@@ -110,7 +117,13 @@ def cli_test(argv=None):
         prefix += "multi-scale_"
     if args.flip:
         prefix += "flip_"
-    evals = [(prefix, CocoEvaluator(coco_val.coco, "bbox"))]
+    if args.task == "detection":
+        evals = [(prefix, CocoEvaluator(coco_val.coco, "bbox"))]
+    else:
+        # pose logs keypoint and box AP of the same detections (reference
+        # centernet_multi_pose.py:300-321)
+        evals = [(prefix + "kp_", CocoEvaluator(coco_val.coco, "keypoints")),
+                 (prefix + "bbox_", CocoEvaluator(coco_val.coco, "bbox"))]
     if args.batched:
         stats = trainer.test_batched(eval_images(coco_val), evals,
                                      batch_size=args.eval_batch_size)

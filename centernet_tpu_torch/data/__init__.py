@@ -1,7 +1,14 @@
 """Data pipeline of the PyTorch port: transforms, target encoding, the COCO
 dataset and the host loader (numpy; the loader's workers never touch CUDA)."""
 
-from .sample import PaddedAnnotationSample, encode_detection, pad_annotations
+from .sample import (
+    CenterDetectionSample,
+    MultiPoseSample,
+    PaddedAnnotationSample,
+    encode_detection,
+    encode_multi_pose,
+    pad_annotations,
+)
 from .transforms import (
     AffineAugmenter,
     CategoryIdToClass,
@@ -19,8 +26,11 @@ from .transforms import (
 )
 
 __all__ = [
+    "CenterDetectionSample",
+    "MultiPoseSample",
     "PaddedAnnotationSample",
     "encode_detection",
+    "encode_multi_pose",
     "pad_annotations",
     "AffineAugmenter",
     "CategoryIdToClass",

@@ -10,8 +10,10 @@ Semantics copied from the JAX module:
 * Offsets go to f32 and are clamped to ``[-r, r - CLIP_EPS]``; while
   training the clamp is straight-through (the backward passes the gradient
   to the raw offsets as if unclamped). The mask is ``sigmoid`` in f32.
-* The radius ``r`` is 4, 2 on maps with ``min(H, W) >= 96``, and never more
-  than ``min(H, W) - 1`` (at least 1).
+* The radius ``r`` (``dcn_radius``) is the module's ``radius`` (4), its
+  ``radius_fine`` (2; 0 turns it off) on maps with ``min(H, W) >= 96``, and
+  never more than ``min(H, W) - 1`` (at least 1). The JAX package reads the
+  two from ``CENTERNET_TPU_DCN_RADIUS`` / ``_FINE``; here they are arguments.
 * The sampling runs in the compute dtype; the output is f32. The weight and
   bias are f32 parameters; the weight is cast to the compute dtype at use.
 * The backward (``DeformConv2dFunction``) keeps only (x, offsets, mask,
@@ -38,9 +40,16 @@ CLIP_EPS = 1.0 / 64.0
 KK = 9  # 3x3 taps
 
 
-def dcn_radius(h: int, w: int) -> int:
-    """Offset clamp radius for an ``h x w`` map (JAX ops/dcn.py:1274-1295)."""
-    r = 2 if min(h, w) >= 96 else 4
+DEFAULT_RADIUS = 4
+DEFAULT_RADIUS_FINE = 2
+
+
+def dcn_radius(h: int, w: int, radius: int = DEFAULT_RADIUS,
+               radius_fine: int = DEFAULT_RADIUS_FINE) -> int:
+    """Offset clamp radius for an ``h x w`` map (JAX ops/dcn.py:1275-1296):
+    ``radius_fine`` where it is > 0 and ``min(h, w) >= 96``, else
+    ``radius``; never ``min(h, w)`` or more, never below 1."""
+    r = radius_fine if radius_fine > 0 and min(h, w) >= 96 else radius
     return max(1, min(r, min(h, w) - 1))
 
 
@@ -221,12 +230,17 @@ class DCN(CastCache, nn.Module):
     """3x3 modulated deformable conv on NCHW (channels_last) tensors, with the
     reference's state_dict layout: ``weight`` [Co,Ci,3,3], ``bias`` [Co],
     ``conv_offset_mask`` Conv2d(Ci, 27); f32 parameters, computing in
-    ``dtype``."""
+    ``dtype``; the offsets clamped at ``dcn_radius(H, W, radius,
+    radius_fine)``."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 radius: int = DEFAULT_RADIUS,
+                 radius_fine: int = DEFAULT_RADIUS_FINE):
         super().__init__()
         self.dtype = dtype
+        self.radius = radius
+        self.radius_fine = radius_fine
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -247,7 +261,7 @@ class DCN(CastCache, nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         h, w = x.shape[-2:]
-        r = dcn_radius(h, w)
+        r = dcn_radius(h, w, self.radius, self.radius_fine)
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
         offsets = om[..., :2 * KK].float()
         mask = torch.sigmoid(om[..., 2 * KK:].float())

@@ -2,8 +2,8 @@
 
 Each object's gaussian is computed densely over the whole (stride-4) output
 map and the objects are reduced with a per-class max, so the encoder is a
-few batched tensor ops on the task's device. ``splat_msra`` (pose only)
-comes with the pose task.
+few batched tensor ops on the task's device. ``splat_umich`` draws the
+detection centres, ``splat_msra`` the pose keypoints.
 """
 
 from __future__ import annotations
@@ -58,6 +58,43 @@ def splat_umich(centers_int: torch.Tensor, radii: torch.Tensor,
     g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
     keep = (g >= F32_EPS) & (dx.abs() <= r) & (dy.abs() <= r) & \
         valid[..., None, None]
+    return torch.where(keep, g, torch.zeros_like(g))
+
+
+def splat_msra(centers_int: torch.Tensor, sigmas: torch.Tensor,
+               valid: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Per-object msra gaussians over the full map (the reference's
+    ``draw_msra_gaussian``): centers_int [..., N, 2] integer (x, y), sigmas
+    [..., N] f32, valid [..., N] bool -> [..., N, H, W] f32.
+
+    The +-3 sigma window ``[ul, br)`` is truncated as python's ``int()``
+    truncates, the whole splat is skipped when the window leaves the map,
+    and the gaussian is centred at ``ul + floor(3 sigma + 0.5)`` (the
+    window's grid centre), not exactly at the keypoint."""
+    out_h, out_w = out_hw
+    dev = centers_int.device
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev).view(out_h, 1)
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev).view(1, out_w)
+    mu_x = centers_int[..., 0].float()
+    mu_y = centers_int[..., 1].float()
+    sigmas = sigmas.float()
+    tmp = 3.0 * sigmas
+    ul_x = torch.trunc(mu_x - tmp)
+    ul_y = torch.trunc(mu_y - tmp)
+    br_x = torch.trunc(mu_x + tmp + 1.0)
+    br_y = torch.trunc(mu_y + tmp + 1.0)
+    ok = (br_x < out_w) & (br_y < out_h) & (ul_x >= 0) & (ul_y >= 0) & valid
+    half = torch.floor((2.0 * tmp + 1.0) / 2.0)
+    gcx = (ul_x + half)[..., None, None]
+    gcy = (ul_y + half)[..., None, None]
+    sig = sigmas.clamp_min(1e-12)[..., None, None]
+    dx = xs - gcx
+    dy = ys - gcy
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sig * sig))
+    ul_x, ul_y = ul_x[..., None, None], ul_y[..., None, None]
+    br_x, br_y = br_x[..., None, None], br_y[..., None, None]
+    keep = ((xs >= ul_x) & (xs < br_x) & (ys >= ul_y) & (ys < br_y)
+            & ok[..., None, None])
     return torch.where(keep, g, torch.zeros_like(g))
 
 

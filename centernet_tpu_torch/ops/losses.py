@@ -1,8 +1,7 @@
 """CenterNet losses, PyTorch port of ``centernet_tpu/ops/losses.py``.
 
 NHWC maps ``[B, H, W, C]``; ``ind`` holds flat ``y*W + x`` indices
-``[B, N]``; regression targets are ``[B, N, C]``. The pose-only
-``reg_weighted_l1_loss`` comes with the pose task.
+``[B, N]``; regression targets are ``[B, N, C]``.
 """
 
 from __future__ import annotations
@@ -44,5 +43,16 @@ def reg_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
     divided by the mask's count over coordinates + 1e-4."""
     pred = gather_feat_nhwc(output, ind)
     m = mask.to(pred.dtype)[..., None].expand_as(pred)
+    loss = torch.abs(pred * m - target * m).sum()
+    return loss / (m.sum() + 1e-4)
+
+
+def reg_weighted_l1_loss(output: torch.Tensor, mask: torch.Tensor,
+                         ind: torch.Tensor, target: torch.Tensor
+                         ) -> torch.Tensor:
+    """``reg_l1_loss`` with a per-coordinate ``mask`` [B,N,C] (the
+    reference's RegWeightedL1Loss, the pose keypoints' loss)."""
+    pred = gather_feat_nhwc(output, ind)
+    m = mask.to(pred.dtype)
     loss = torch.abs(pred * m - target * m).sum()
     return loss / (m.sum() + 1e-4)

@@ -1,11 +1,13 @@
-"""Tasks of the PyTorch port: the CenterNet base and detection (the pose
-task comes with ROADMAP A9)."""
+"""Tasks of the PyTorch port: the CenterNet base, detection and multi-person
+pose."""
 
 from .base import CenterNet, CenterNetModel
 from .detection import CenterNetDetection
+from .multi_pose import CenterNetMultiPose
 
 TASK_REGISTRY = {
     "CenterNetDetection": CenterNetDetection,
+    "CenterNetMultiPose": CenterNetMultiPose,
 }
 
 
@@ -13,7 +15,8 @@ def task_from_hparams(hparams, **overrides):
     """Rebuild a task from the hyperparameters a checkpoint's sidecar keeps
     (``CenterNet.hparams()``; reference centernet_test.py:72-74).
     ``overrides`` are the load-time choices that are not kept: TTA
-    (``test_scales``, ``test_flip``), ``dtype``, ``device``."""
+    (``test_scales``, ``test_flip``, ``tta_bucket``), ``dtype``,
+    ``device``."""
     hp = dict(hparams)
     name = hp.pop("task")
     try:
@@ -27,4 +30,4 @@ def task_from_hparams(hparams, **overrides):
 
 
 __all__ = ["CenterNet", "CenterNetModel", "CenterNetDetection",
-           "TASK_REGISTRY", "task_from_hparams"]
+           "CenterNetMultiPose", "TASK_REGISTRY", "task_from_hparams"]

@@ -1,11 +1,12 @@
 """Base CenterNet task, PyTorch port of ``centernet_tpu/tasks/base.py``.
 
 * ``CenterNetModel``: backbone + one ``CenterHead`` per supervision stack, an
-  ``nn.Module`` on NCHW channels_last tensors. With ``remat`` (hourglass, as
-  in the JAX package) a train-mode forward checkpoints the backbone: its
-  activations are recomputed in the backward pass, with the BatchNorm
-  statistics held (``ops.modules.frozen_statistics``) so that they advance
-  once per step.
+  ``nn.Module`` on NCHW channels_last tensors; every DCN layer clamps its
+  offsets at ``ops.dcn.dcn_radius(H, W, dcn_radius, dcn_radius_fine)``.
+  With ``remat`` (hourglass, as in the JAX package) a train-mode forward
+  checkpoints the backbone: its activations are recomputed in the backward
+  pass, with the BatchNorm statistics held (``ops.modules.
+  frozen_statistics``) so that they advance once per step.
 * ``CenterNet``: the task. It owns the model on an explicit device, the arch
   constants, its hyperparameters for checkpoint sidecars (``hparams``), the
   on-device uint8 normalisation, the fixed-shape eval geometry
@@ -30,6 +31,7 @@ from torch import nn
 from ..data.transforms import normalize_coeffs
 from ..models import CenterHead, create_model
 from ..models.layers import init_parameters
+from ..ops.dcn import DCN, DEFAULT_RADIUS, DEFAULT_RADIUS_FINE
 from ..ops.modules import frozen_statistics
 
 
@@ -99,11 +101,16 @@ class CenterNetModel(nn.Module):
     dict of NCHW f32 head outputs."""
 
     def __init__(self, arch: str, heads: Mapping[str, int], head_conv: int,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 dcn_radius: int = DEFAULT_RADIUS,
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
         super().__init__()
         self.dtype = dtype
         self.remat = remat
         self.backbone = create_model(arch, dtype)
+        for m in self.backbone.modules():
+            if isinstance(m, DCN):
+                m.radius, m.radius_fine = dcn_radius, dcn_radius_fine
         self.heads = nn.ModuleList(
             CenterHead(heads, self.backbone.out_channels, head_conv,
                        dtype=dtype)
@@ -139,7 +146,9 @@ class Optimizer:
 
 
 class CenterNet:
-    """Task base: model, arch constants, image preparation, optimizer."""
+    """Task base: model, arch constants, image preparation, optimizer.
+    ``dcn_radius`` / ``dcn_radius_fine`` set the DCN layers' offset clamp
+    (the JAX package's ``CENTERNET_TPU_DCN_RADIUS`` / ``_FINE``)."""
 
     heads: Mapping[str, int] = {}
     mean = (0.408, 0.447, 0.470)  # BGR
@@ -148,9 +157,13 @@ class CenterNet:
     def __init__(self, arch: str = "dla_34",
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0, learning_rate: float = 25e-5,
-                 learning_rate_milestones: Optional[Sequence[int]] = None):
+                 learning_rate_milestones: Optional[Sequence[int]] = None,
+                 dcn_radius: int = DEFAULT_RADIUS,
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
         self.device = resolve_device(device)
         self.arch = arch
+        self.dcn_radius = dcn_radius
+        self.dcn_radius_fine = dcn_radius_fine
         self.dtype = dtype
         self.learning_rate = learning_rate
         self.learning_rate_milestones = list(learning_rate_milestones or [])
@@ -159,7 +172,9 @@ class CenterNet:
         self.padding = arch_test_padding(arch)
         self.down_ratio = 4
         model = CenterNetModel(arch, dict(self.heads), self.head_conv, dtype,
-                               remat="hourglass" in arch)
+                               remat="hourglass" in arch,
+                               dcn_radius=dcn_radius,
+                               dcn_radius_fine=dcn_radius_fine)
         init_parameters(model, torch.Generator().manual_seed(seed))
         self.model = model.to(
             self.device, memory_format=torch.channels_last).eval()
@@ -169,13 +184,17 @@ class CenterNet:
 
     def hparams(self) -> Dict[str, Any]:
         """What rebuilds this task from a checkpoint alone (``tasks.
-        task_from_hparams``), the keys of the JAX package's; load-time
-        choices (TTA, dtype, device) are not kept."""
+        task_from_hparams``), the keys of the JAX package's and the DCN
+        radii (which the JAX package reads from its environment); load-time
+        choices (TTA, dtype, device) are not kept. A sidecar without the
+        radii rebuilds the task at the defaults."""
         return {
             "task": type(self).__name__,
             "arch": self.arch,
             "learning_rate": self.learning_rate,
             "learning_rate_milestones": self.learning_rate_milestones,
+            "dcn_radius": self.dcn_radius,
+            "dcn_radius_fine": self.dcn_radius_fine,
         }
 
     def train(self, mode: bool = True) -> "CenterNet":

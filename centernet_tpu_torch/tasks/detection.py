@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..data.sample import encode_detection
+from ..ops.dcn import DEFAULT_RADIUS, DEFAULT_RADIUS_FINE
 from ..ops.decode import ctdet_decode
 from ..ops.losses import focal_loss, reg_l1_loss, sigmoid_clamped
 from ..ops.nms import soft_nms
@@ -63,8 +64,9 @@ def tta_pad_dims(new_h: int, new_w: int, padding: int,
 
 class CenterNetDetection(CenterNet):
     """Detection task; ``device=None`` means CUDA. ``test_scales``,
-    ``test_flip``, ``test_max_per_image`` and ``tta_bucket`` set up
-    ``predict``'s TTA."""
+    ``test_flip``, ``test_max_per_image`` and ``tta_bucket`` (0: the
+    reference's exact geometry) set up ``predict``'s TTA; ``dcn_radius`` and
+    ``dcn_radius_fine`` the DCN clamp (``CenterNet``)."""
 
     valid_ids = COCO_VALID_IDS
 
@@ -78,7 +80,8 @@ class CenterNetDetection(CenterNet):
                  off_weight: float = 1.0,
                  test_scales: Optional[Sequence[float]] = None,
                  test_flip: bool = False, test_max_per_image: int = 100,
-                 tta_bucket: int = 128):
+                 tta_bucket: int = 128, dcn_radius: int = DEFAULT_RADIUS,
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
         self.num_classes = num_classes
         self.heads = {
             "heatmap": num_classes,
@@ -95,7 +98,9 @@ class CenterNetDetection(CenterNet):
         self.tta_bucket = tta_bucket
         super().__init__(arch, dtype=dtype, device=device, seed=seed,
                          learning_rate=learning_rate,
-                         learning_rate_milestones=learning_rate_milestones)
+                         learning_rate_milestones=learning_rate_milestones,
+                         dcn_radius=dcn_radius,
+                         dcn_radius_fine=dcn_radius_fine)
 
     def hparams(self):
         hp = super().hparams()

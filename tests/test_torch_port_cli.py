@@ -7,8 +7,8 @@ input, batch 2, one batch an epoch) on a seeded mini-COCO:
   Adam state and the learning-rate schedule carried over;
 * ``cli.test --checkpoint`` rebuilds the task from the sidecar's hparams
   (whatever ``--arch`` says) and scores flip TTA and the batched path;
-* what the port does not have yet is refused by name (pose, spatial
-  sharding, export, several devices), as is ``--batched`` with TTA;
+* what the port does not have yet is refused by name (spatial sharding,
+  export, several devices), as is ``--batched`` with TTA;
 * a restore writes the weights in place, so a task that already served
   (its bf16 cast caches filled) predicts what a fresh task does;
 * weight files that do not match the model fail loudly.
@@ -114,7 +114,7 @@ def test_test_cli_rebuilds_the_task_from_the_sidecar(trained):
 
 
 @pytest.mark.parametrize("task, extra, item", [
-    ("multi_pose", [], "A9"),
+    ("multi_pose", ["--export_serving", "x.pt"], "A11"),
     ("detection", ["--spatial", "2", "--batched"], "A11"),
     ("detection", ["--export_serving", "x.pt"], "A11"),
 ])

@@ -32,6 +32,14 @@ meet when flip + multi-scale TTA (scales 0.5-1.5, bucket 128) evaluates a
 640x480 image, at batch 2 (the flip pair): sides such as 12, 20 and 28 that
 the 8x8 tile does not divide, on the wgmma kernels in bf16.
 
+The gate cases run both kernels at the DCN calls of the train->AP gates
+(resdcn_18, batch 8): radius 1 at 2x2, 4x4 and 8x8 (64x64 input,
+``dcn_radius=1``) and the default radii at 4x4, 8x8 and 16x16 (128x128
+input; 3 on the 4-cell map, 4 above); bf16 also at the largest radius the
+launch plan stages for three channel widths; and a radius no plan stages
+(127, from ``dcn_radius=1000, dcn_radius_fine=0`` on a 128x128 map) must
+raise through the DCN module, launching nothing.
+
 TF32 is off for the f32 cases (the plain versions' matrix products).
 """
 
@@ -395,3 +403,74 @@ def test_kernels_match_plain_at_tta_shapes(dev, shape, dtype):
     assert got.shape == (2, h, w, co) and bool(torch.isfinite(got).all())
     assert _rel_err(got, want) <= TOL[dtype]
     _assert_backward_close(got_bwd, want_bwd, dtype, shape)
+
+
+# The train->AP gates' DCN calls (resdcn_18, batch 8): (map side, Ci, Co,
+# radius) at a 64x64 input with dcn_radius=1, and at 128x128 with the
+# default radii, capped at the side - 1 on the 4-cell map.
+GATE_SHAPES = [(2, 512, 256, 1), (4, 256, 128, 1), (8, 128, 64, 1),
+               (4, 512, 256, 3), (8, 256, 128, 4), (16, 128, 64, 4)]
+
+
+def _both_kernels_at(dev, b, hw, ci, co, r, dtype):
+    """Both kernels against their plain versions at batch b, radius r,
+    offsets across +-(r+1), clamped, some exactly on the bounds."""
+    from centernet_tpu_torch.ops.dcn import (CLIP_EPS, deform_conv2d,
+                                             deform_conv2d_backward,
+                                             deform_conv2d_backward_reference,
+                                             deform_conv2d_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(b * hw + ci + co + r)
+    kw = {"generator": gen, "device": dev}
+    x = torch.randn(b, hw, hw, ci, **kw).to(dtype)
+    off = ((torch.rand(b, hw, hw, 18, **kw) * 2 - 1) * (r + 1)).clamp(
+        -r, r - CLIP_EPS)
+    off.view(-1)[::7] = -r
+    off.view(-1)[3::11] = r - CLIP_EPS
+    mask = torch.rand(b, hw, hw, 9, **kw)
+    wt = (torch.randn(9 * ci, co, **kw) / (9 * ci) ** 0.5).to(dtype)
+    bias = torch.randn(co, **kw) * 0.1
+    g = torch.randn(b, hw, hw, co, **kw)
+    got = deform_conv2d(x, off, mask, wt, bias, radius=r)
+    got_bwd = deform_conv2d_backward(x, off, mask, wt, g, radius=r)
+    want = deform_conv2d_reference(x, off, mask, wt, bias)
+    want_bwd = deform_conv2d_backward_reference(x, off, mask, wt, g)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) <= TOL[dtype]
+    _assert_backward_close(got_bwd, want_bwd, dtype, (hw, hw, ci, co))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", GATE_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[0]}_C{s[1]}-{s[2]}_r{s[3]}")
+def test_kernels_match_plain_at_the_gates_radii(dev, shape, dtype):
+    _both_kernels_at(dev, 8, *shape, dtype)
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 64, 8), (32, 256, 128, 6),
+                                   (16, 512, 256, 4)],
+                         ids=lambda s: f"{s[0]}x{s[0]}_C{s[1]}-{s[2]}_r{s[3]}")
+def test_kernels_match_plain_at_the_largest_staged_radius(dev, shape):
+    """bf16 at the largest radius the launch plan stages for these channels
+    (``test_torch_port_radius.py::MAX_RADIUS``)."""
+    _both_kernels_at(dev, 2, *shape, torch.bfloat16)
+
+
+def test_an_unstageable_radius_raises_on_the_card(dev):
+    """``dcn_radius=1000, dcn_radius_fine=0`` (the JAX reference-oracle
+    setting) gives radius 127 on a 128x128 map: the plan's ValueError
+    reaches the caller, nothing launches and nothing falls back."""
+    from centernet_tpu_torch.ops.dcn import DCN
+    from centernet_tpu_torch.ops.dcn_cuda import launch_counts
+
+    layer = DCN(64, 64, dtype=torch.bfloat16, radius=1000,
+                radius_fine=0).to(dev)
+    layer.init_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn(1, 64, 128, 128, device=dev).to(
+        memory_format=torch.channels_last)
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="radius 127"):
+        layer(x)
+    assert dict(launch_counts) == before

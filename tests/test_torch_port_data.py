@@ -65,9 +65,9 @@ def test_pipeline_samples_are_identical_to_jax(coco, which, host_normalize):
             np.float32 if host_normalize else np.uint8)
         assert img.shape == (INPUT, INPUT, 3)
         np.testing.assert_array_equal(img, jimg)
-        # (the JAX package's also pads pose keypoints, "keypoints_raw": the
-        # port's pose task is ROADMAP A9)
-        assert sorted(tgt) == ["boxes", "classes", "valid"]
+        # the pose keypoints are padded too (zero rows for detection)
+        assert sorted(tgt) == sorted(jtgt) == [
+            "boxes", "classes", "keypoints_raw", "valid"]
         for k in tgt:
             assert tgt[k].dtype == jtgt[k].dtype, k
             np.testing.assert_array_equal(tgt[k], jtgt[k], err_msg=k)

@@ -34,16 +34,17 @@ import centernet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-pkg.CenterNetDetection, pkg.create_model  # the lazy exports resolve
+pkg.CenterNetDetection, pkg.CenterNetMultiPose, pkg.create_model  # lazy
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                     "centernet_tpu"))
 want = {"centernet_tpu_torch." + m for m in (
-    "cli.common", "cli.detection", "cli.test", "data.coco", "data.loader",
-    "data.transforms", "entry", "models.hourglass", "models.resnet",
-    "models.resnet_dcn", "ops.nms", "parallel.trainer",
-    "utils.checkpoint", "utils.coco_eval", "utils.logging",
-    "utils.profiling", "utils.torch_import")}
+    "cli.common", "cli.detection", "cli.multi_pose", "cli.test",
+    "data.coco", "data.loader", "data.transforms", "entry",
+    "models.hourglass", "models.resnet", "models.resnet_dcn", "ops.nms",
+    "parallel.trainer", "tasks.multi_pose", "utils.checkpoint",
+    "utils.coco_eval", "utils.logging", "utils.profiling",
+    "utils.torch_import")}
 assert want <= set(names), sorted(want - set(names))
 print(len(names), bad)
 """
@@ -71,6 +72,7 @@ def test_task_defaults_to_cuda_and_never_falls_back_to_cpu():
 
 
 def test_entry_and_clis_default_to_cuda(tmp_path):
+    from centernet_tpu_torch.cli.multi_pose import cli_main as pose_main
     from centernet_tpu_torch.cli.test import cli_test
     from centernet_tpu_torch.entry import entry
 
@@ -82,6 +84,10 @@ def test_entry_and_clis_default_to_cuda(tmp_path):
         entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli_test(["detection", str(tmp_path), str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_test(["multi_pose", str(tmp_path), str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pose_main([str(tmp_path), str(tmp_path)])
 
 
 def test_deform_conv2d_routes_cpu_tensors_to_the_plain_version(monkeypatch):

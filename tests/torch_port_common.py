@@ -93,20 +93,41 @@ def write_image(path, img_rgb):
         Image.fromarray(img_rgb).save(path)
 
 
+JOINTS = 17
+
+
+def _person_keypoints(rng, bbox):
+    """17 (x, y, visibility) joints inside ``bbox``, a few unlabelled (0, 0,
+    0) as COCO writes them."""
+    x, y, bw, bh = bbox
+    vis = rng.integers(0, 3, JOINTS)
+    xs = x + rng.uniform(0, bw, JOINTS)
+    ys = y + rng.uniform(0, bh, JOINTS)
+    kps = np.stack([xs * (vis > 0), ys * (vis > 0), vis], 1)
+    return [float(v) for v in kps.ravel()], int((vis > 0).sum())
+
+
 def make_mini_coco(root, n_train=8, n_val=4, sizes=COCO_SIZES, seed=0):
     """A seeded COCO folder: ``<root>/images/{train,val}2017/*.png`` and
     ``<root>/annotations/instances_{train,val}2017.json``, each image with
-    2-6 boxes over ``COCO_CATEGORY_IDS``. Returns (image_root, ann_root)."""
+    2-6 boxes over ``COCO_CATEGORY_IDS``; and
+    ``person_keypoints_{train,val}2017.json``, the same boxes as persons
+    (category 1, whose ``keypoints`` list the OKS evaluator selects on),
+    each with 17 joints inside it. Returns (image_root, ann_root)."""
     import json
     import os
 
     rng = np.random.default_rng(seed)
+    kp_rng = np.random.default_rng(seed + 1)
     ann_root = os.path.join(root, "annotations")
     os.makedirs(ann_root, exist_ok=True)
+    person = {"id": 1, "name": "person", "supercategory": "person",
+              "keypoints": [f"joint_{j}" for j in range(JOINTS)],
+              "skeleton": []}
     for split, n in (("train2017", n_train), ("val2017", n_val)):
         img_dir = os.path.join(root, "images", split)
         os.makedirs(img_dir, exist_ok=True)
-        images, anns = [], []
+        images, anns, persons = [], [], []
         for i in range(n):
             w, h = sizes[i % len(sizes)]
             name = f"{i:012d}.png"
@@ -122,11 +143,18 @@ def make_mini_coco(root, n_train=8, n_val=4, sizes=COCO_SIZES, seed=0):
                     "category_id": int(rng.choice(COCO_CATEGORY_IDS)),
                     "bbox": [float(x), float(y), float(bw), float(bh)],
                     "area": float(bw * bh), "iscrowd": 0})
+                kps, labelled = _person_keypoints(kp_rng, (x, y, bw, bh))
+                persons.append(dict(anns[-1], category_id=1, keypoints=kps,
+                                    num_keypoints=labelled))
         coco = {"images": images, "annotations": anns,
                 "categories": [{"id": c, "name": f"c{c}"}
                                for c in COCO_CATEGORY_IDS]}
         with open(os.path.join(ann_root, f"instances_{split}.json"), "w") as f:
             json.dump(coco, f)
+        with open(os.path.join(ann_root, f"person_keypoints_{split}.json"),
+                  "w") as f:
+            json.dump({"images": images, "annotations": persons,
+                       "categories": [person]}, f)
     return os.path.join(root, "images"), ann_root
 
 
