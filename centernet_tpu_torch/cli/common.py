@@ -1,14 +1,25 @@
 """Shared CLI plumbing, PyTorch port of ``centernet_tpu/cli/common.py``: the
 same flags and defaults, plus ``--device`` (reference arg surface:
 centernet_detection.py:268-419, centernet.py:107-119, and the Trainer flags
-the reference inherits from ``pl.Trainer.add_argparse_args``)."""
+the reference inherits from ``pl.Trainer.add_argparse_args``).
+
+Data parallelism (``--num_devices``): under ``torchrun`` the world comes
+from the environment; otherwise ``--num_devices N`` > 1 starts N local
+ranks (``parallel.mesh.launch``), one per visible GPU with NCCL, or gloo
+ranks on the CPU with ``--device cpu``, each of which runs the CLI again as
+a rank of the data-parallel mesh (``rank_mesh``).
+"""
 
 from __future__ import annotations
 
 import argparse
-from typing import List
+import importlib
+from typing import List, Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel import mesh as mesh_lib
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -39,9 +50,7 @@ def add_model_args(parser: argparse.ArgumentParser) -> None:
 
 def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--max_epochs", type=int, default=140)
-    parser.add_argument("--num_devices", type=int, default=None,
-                        help="devices to train on; the port trains on one "
-                        "(data parallelism is ROADMAP A10)")
+    add_num_devices_arg(parser)
     parser.add_argument("--limit_train_batches", type=int, default=None)
     parser.add_argument("--limit_val_batches", type=int, default=None)
     parser.add_argument("--default_root_dir", default="./runs")
@@ -62,7 +71,7 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
                         "not multiply the effective batch — to match a "
                         "Lightning config (batch B, accumulate K) use "
                         "--batch_size K*B with this flag = K. batch_size "
-                        "must divide by K")
+                        "must divide by K times the data-parallel ranks")
 
 
 def add_data_args(parser: argparse.ArgumentParser) -> None:
@@ -115,15 +124,90 @@ def model_kwargs(args) -> dict:
     """The task arguments that ``add_model_args``' flags set."""
     return {"dcn_radius": args.dcn_radius,
             "dcn_radius_fine": args.dcn_radius_fine,
-            "dtype": DTYPES[args.precision], "device": args.device}
+            "dtype": DTYPES[args.precision], "device": rank_device(args)}
 
 
 def parse_milestones(spec: str) -> List[int]:
     return [int(x) for x in str(spec).replace(" ", "").split(",") if x]
 
 
-def check_num_devices(n) -> None:
-    if n is not None and n > 1:
+def add_num_devices_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "--num_devices", type=int, default=None,
+        help="data-parallel ranks (one process each, the global batch "
+        "split among them): one per visible GPU with NCCL, or gloo ranks "
+        "with --device cpu; under torchrun its world size, which this flag "
+        "must then match")
+
+
+def device_type(args) -> str:
+    return torch.device(args.device).type if args.device else "cuda"
+
+
+def rank_device(args) -> Optional[str]:
+    """``--device``; in a CUDA rank of a data-parallel group, the rank's own
+    card (``cuda:LOCAL_RANK``, made current when the rank joined)."""
+    if dist.is_initialized() and device_type(args) == "cuda":
+        return f"cuda:{torch.cuda.current_device()}"
+    return args.device
+
+
+def check_global_batch(args) -> None:
+    """Refuse a global ``--batch_size`` that the ranks (``torchrun``'s, this
+    group's or ``--num_devices``) times ``--accumulate_grad_batches`` do
+    not divide, before any rank starts."""
+    world = (mesh_lib.torchrun_world()
+             or (dist.get_world_size() if dist.is_initialized() else None)
+             or args.num_devices or 1)
+    k = args.accumulate_grad_batches
+    if args.batch_size % (k * world):
         raise SystemExit(
-            f"--num_devices {n}: the port trains on one device; data "
-            f"parallelism comes with ROADMAP A10")
+            f"--batch_size {args.batch_size} must divide by "
+            f"--accumulate_grad_batches times the ranks ({k} x {world}, "
+            f"--num_devices {world})")
+
+
+def spawn_ranks(args, entry: str, argv) -> Optional[list]:
+    """If ``--num_devices`` N > 1 and this process is not a rank already
+    (``torchrun`` or a launched one): run the CLI function ``entry``
+    ("module:function") on ``argv`` in N local ranks and return what each
+    returned; else None. N above the visible GPUs, or one that disagrees
+    with ``torchrun``'s world size, is refused."""
+    n = args.num_devices
+    world = mesh_lib.torchrun_world()
+    if world is not None:
+        if n is not None and n != world:
+            raise SystemExit(f"--num_devices {n}: torchrun started {world} "
+                             f"ranks")
+        return None
+    if dist.is_initialized() or n is None or n <= 1:
+        return None
+    kind = device_type(args)
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: pass --device cpu for gloo ranks on "
+                "the CPU")
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise SystemExit(
+                f"--num_devices {n}: this host has {visible} visible GPU(s), "
+                f"and each rank needs one of its own (NCCL takes no two "
+                f"ranks on one GPU); --device cpu runs gloo ranks")
+    return mesh_lib.launch(run_entry, n, entry, list(argv), device_type=kind)
+
+
+def run_entry(entry: str, argv: List[str]):
+    """Run the CLI function ``entry`` in a launched rank; return its result
+    if it is a dict (the stats that ``cli.test`` returns), else None."""
+    module, name = entry.split(":")
+    result = getattr(importlib.import_module(module), name)(argv)
+    return result if isinstance(result, dict) else None
+
+
+def rank_mesh(args):
+    """The data-parallel mesh this process is a rank of (``torchrun``'s
+    environment or ``spawn_ranks``), or None for one process."""
+    if not mesh_lib.maybe_init_distributed(device_type(args)):
+        return None
+    return mesh_lib.make_mesh(device_type=device_type(args))

@@ -4,7 +4,7 @@ augmentation pipelines, COCO datasets, loaders, task, checkpoint callback,
 fit, then a TTA test pass with COCO eval.
 
     python -m centernet_tpu_torch.cli.detection IMAGES ANNOTATIONS \\
-        --arch dla_34 --batch_size 32 [--device cpu] ...
+        --arch dla_34 --batch_size 32 [--device cpu] [--num_devices 2] ...
 
 ``IMAGES`` holds ``train2017/`` and ``val2017/``, ``ANNOTATIONS`` the
 ``instances_{train,val}2017.json`` files.
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 
@@ -29,13 +30,15 @@ from ..data import (
 from ..data import transforms as T
 from ..data.coco import CocoDetection
 from ..data.loader import DataLoader
+from ..parallel.mesh import data_rank_and_size
 from ..parallel.trainer import CheckpointCallback, Trainer
 from ..tasks.detection import CenterNetDetection
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.torch_import import (load_imagenet_backbone,
                                   load_legacy_centernet_weights)
 from .common import (add_data_args, add_model_args, add_trainer_args,
-                     check_num_devices, model_kwargs, parse_milestones)
+                     check_global_batch, model_kwargs, parse_milestones,
+                     rank_mesh, spawn_ranks)
 
 
 def build_pipelines(task, input_size: int = 512, host_normalize: bool = False):
@@ -56,10 +59,10 @@ def build_pipelines(task, input_size: int = 512, host_normalize: bool = False):
             pipeline(eval_augmenter(input_size)))
 
 
-def eval_images(coco: CocoDetection):
+def eval_images(coco: CocoDetection, rank: int = 0, world: int = 1):
     """(BGR f32 [0, 1] image, image_id) over a dataset's ids, as the test
-    passes take them."""
-    for img_id in coco.ids:
+    passes take them; a data-parallel rank's strided share of them."""
+    for img_id in coco.ids[rank::world]:
         img = coco._load_image(img_id)[..., ::-1].astype(np.float32) / 255.0
         yield img, img_id
 
@@ -73,8 +76,15 @@ def cli_main(argv=None):
     add_model_args(parser)
     add_trainer_args(parser)
     parser.add_argument("--test_only", action="store_true")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    check_num_devices(args.num_devices)
+    check_global_batch(args)
+    spawned = spawn_ranks(args, "centernet_tpu_torch.cli.detection:cli_main",
+                          argv)
+    if spawned is not None:
+        return spawned[0]
+    mesh = rank_mesh(args)
+    rank, world = data_rank_and_size(mesh)
 
     task = CenterNetDetection(
         args.arch,
@@ -97,13 +107,16 @@ def cli_main(argv=None):
     )
     train_loader = DataLoader(
         coco_train, batch_size=args.batch_size, num_workers=args.num_workers,
-        shuffle=True, seed=5318008, worker_mode=args.worker_mode)
+        shuffle=True, seed=5318008, worker_mode=args.worker_mode,
+        process_index=rank, process_count=world)
     val_loader = DataLoader(
         coco_val, batch_size=args.batch_size, num_workers=args.num_workers,
-        shuffle=False, worker_mode=args.worker_mode)
+        shuffle=False, worker_mode=args.worker_mode, process_index=rank,
+        process_count=world)
 
     trainer = Trainer(
         task,
+        mesh=mesh,
         max_epochs=args.max_epochs,
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches,
@@ -126,7 +139,7 @@ def cli_main(argv=None):
         load_imagenet_backbone(args.backbone_weights, task)
 
     if not args.test_only:
-        if args.profile:
+        if args.profile and rank == 0:
             from ..utils.profiling import trace
 
             with trace(os.path.join(args.default_root_dir, "profile")):
@@ -140,8 +153,9 @@ def cli_main(argv=None):
 
     # TTA test + COCO eval (reference :412-418 uses the val set)
     evaluator = CocoEvaluator(coco_val.coco, "bbox")
-    stats = trainer.test(eval_images(coco_val), evaluator)
-    print(stats)
+    stats = trainer.test(eval_images(coco_val, rank, world), evaluator)
+    if rank == 0:
+        print(stats)
     return trainer
 
 

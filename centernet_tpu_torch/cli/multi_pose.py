@@ -6,7 +6,7 @@ prediction pass scored for keypoint AP (``test/kp_*``) and box AP
 (``test/bbox_*``).
 
     python -m centernet_tpu_torch.cli.multi_pose IMAGES ANNOTATIONS \\
-        --arch dla_34 --batch_size 32 [--device cpu] ...
+        --arch dla_34 --batch_size 32 [--device cpu] [--num_devices 2] ...
 
 ``IMAGES`` holds ``train2017/`` and ``val2017/``, ``ANNOTATIONS`` the
 ``person_keypoints_{train,val}2017.json`` files.
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 
@@ -31,13 +32,15 @@ from ..data import (
 from ..data import transforms as T
 from ..data.coco import CocoDetection
 from ..data.loader import DataLoader
+from ..parallel.mesh import data_rank_and_size
 from ..parallel.trainer import CheckpointCallback, Trainer
 from ..tasks.multi_pose import CenterNetMultiPose
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.torch_import import (load_imagenet_backbone,
                                   load_legacy_centernet_weights)
 from .common import (add_data_args, add_model_args, add_trainer_args,
-                     check_num_devices, model_kwargs, parse_milestones)
+                     check_global_batch, model_kwargs, parse_milestones,
+                     rank_mesh, spawn_ranks)
 from .detection import eval_images
 
 
@@ -72,8 +75,15 @@ def cli_main(argv=None):
     add_model_args(parser)
     add_trainer_args(parser)
     parser.add_argument("--test_only", action="store_true")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    check_num_devices(args.num_devices)
+    check_global_batch(args)
+    spawned = spawn_ranks(args, "centernet_tpu_torch.cli.multi_pose:cli_main",
+                          argv)
+    if spawned is not None:
+        return spawned[0]
+    mesh = rank_mesh(args)
+    rank, world = data_rank_and_size(mesh)
 
     task = CenterNetMultiPose(
         args.arch,
@@ -96,13 +106,16 @@ def cli_main(argv=None):
     )
     train_loader = DataLoader(
         coco_train, batch_size=args.batch_size, num_workers=args.num_workers,
-        shuffle=True, seed=5318008, worker_mode=args.worker_mode)
+        shuffle=True, seed=5318008, worker_mode=args.worker_mode,
+        process_index=rank, process_count=world)
     val_loader = DataLoader(
         coco_val, batch_size=args.batch_size, num_workers=args.num_workers,
-        shuffle=False, worker_mode=args.worker_mode)
+        shuffle=False, worker_mode=args.worker_mode, process_index=rank,
+        process_count=world)
 
     trainer = Trainer(
         task,
+        mesh=mesh,
         max_epochs=args.max_epochs,
         limit_train_batches=args.limit_train_batches,
         limit_val_batches=args.limit_val_batches,
@@ -120,7 +133,7 @@ def cli_main(argv=None):
         load_imagenet_backbone(args.backbone_weights, task)
 
     if not args.test_only:
-        if args.profile:
+        if args.profile and rank == 0:
             from ..utils.profiling import trace
 
             with trace(os.path.join(args.default_root_dir, "profile")):
@@ -134,11 +147,12 @@ def cli_main(argv=None):
 
     # keypoint and box AP of the same detections (reference
     # centernet_multi_pose.py:300-321)
-    stats = trainer.test(eval_images(coco_val), [
+    stats = trainer.test(eval_images(coco_val, rank, world), [
         ("kp_", CocoEvaluator(coco_val.coco, "keypoints")),
         ("bbox_", CocoEvaluator(coco_val.coco, "bbox")),
     ])
-    print(stats)
+    if rank == 0:
+        print(stats)
     return trainer
 
 

@@ -4,7 +4,7 @@ centernet_test.py cli_test, :20-84).
     python -m centernet_tpu_torch.cli.test {detection,multi_pose} IMAGES \\
         ANNOTATIONS --checkpoint runs/checkpoints/last --flip \\
         [--multi_scale] [--tta_bucket 0] [--batched --eval_batch_size 16] \\
-        [--device cpu]
+        [--device cpu] [--num_devices 2] [--export_serving serve.pt2]
 
 Restores a checkpoint (the task is rebuilt from its sidecar's hparams, so
 ``--arch`` and the DCN radii need not be repeated) or imports legacy
@@ -13,14 +13,21 @@ CenterNet weights, and scores the val set to COCO AP through per-image TTA
 (``--batched``). Detection reads ``instances_val2017.json`` and logs box
 AP; pose reads ``person_keypoints_val2017.json`` and logs keypoint AP
 (``kp_``) and box AP (``bbox_``) of the same detections.
+
+With ``--num_devices`` (or under ``torchrun``) each rank scores its strided
+share of the val ids and the COCO rows of all ranks are gathered before the
+AP. ``--export_serving PATH`` also writes the restored model's serving
+program (``utils/export.py``; the first rank alone writes it).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from ..data.coco import CocoDetection
+from ..parallel.mesh import data_rank_and_size
 from ..parallel.trainer import Trainer
 from ..tasks import task_from_hparams
 from ..tasks.detection import CenterNetDetection
@@ -28,7 +35,8 @@ from ..tasks.multi_pose import CenterNetMultiPose
 from ..utils.checkpoint import load_checkpoint_hparams, restore_checkpoint
 from ..utils.coco_eval import CocoEvaluator
 from ..utils.torch_import import load_legacy_centernet_weights
-from .common import DTYPES, add_model_args, model_kwargs
+from .common import (DTYPES, add_model_args, add_num_devices_arg,
+                     model_kwargs, rank_device, rank_mesh, spawn_ranks)
 from .detection import eval_images
 
 TASKS = {"detection": CenterNetDetection, "multi_pose": CenterNetMultiPose}
@@ -62,34 +70,43 @@ def cli_test(argv=None):
     parser.add_argument("--eval_batch_size", type=int, default=16)
     parser.add_argument(
         "--spatial", type=int, default=1, metavar="M",
-        help="shard each image's H axis over M devices (ROADMAP A11; the "
-        "port has 1)")
+        help="shard each image's H axis over M devices (spatial sharding, "
+        "ROADMAP A11, is not ported yet: 1)")
     parser.add_argument("--precision", default="bf16", choices=list(DTYPES))
     parser.add_argument(
         "--export_serving", default=None, metavar="PATH",
-        help="write a serving artifact of the restored model (ROADMAP A11; "
-        "not in the port yet)")
-    parser.add_argument("--export_batch", type=int, default=8)
-    parser.add_argument("--export_size", type=int, default=512)
+        help="also write a serving program (torch.export, weights baked "
+        "in) of the restored model; see utils/export.py")
+    parser.add_argument("--export_batch", type=int, default=8,
+                        help="batch size baked into --export_serving")
+    parser.add_argument("--export_size", type=int, default=512,
+                        help="input size baked into --export_serving")
+    add_num_devices_arg(parser)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
-    if args.spatial > 1 or args.export_serving:
-        raise SystemExit("--spatial and --export_serving come to the port "
-                         "with ROADMAP A11")
+    if args.spatial > 1:
+        raise SystemExit(f"--spatial {args.spatial}: spatial sharding is "
+                         f"not ported yet (ROADMAP A11)")
     if args.batched and (args.flip or args.multi_scale):
         raise SystemExit(
             "--batched is the single-scale serving path; drop "
             "--flip/--multi_scale or use the TTA loop")
+    spawned = spawn_ranks(args, "centernet_tpu_torch.cli.test:cli_test", argv)
+    if spawned is not None:
+        return spawned[0]
+    mesh = rank_mesh(args)
+    rank, world = data_rank_and_size(mesh)
 
     tta = dict(test_scales=MULTI_SCALES if args.multi_scale else None,
                test_flip=args.flip, tta_bucket=args.tta_bucket,
-               dtype=DTYPES[args.precision], device=args.device)
+               dtype=DTYPES[args.precision], device=rank_device(args))
     # self-describing checkpoints: the sidecar's hparams rebuild the task
     # (reference: Lightning load_from_checkpoint, centernet_test.py:72-74)
     meta_hp = (load_checkpoint_hparams(args.checkpoint)
                if args.checkpoint else None)
     if meta_hp is not None:
-        if meta_hp.get("arch") != args.arch:
+        if meta_hp.get("arch") != args.arch and rank == 0:
             print(f"[cli_test] using arch {meta_hp.get('arch')!r} from "
                   f"checkpoint hparams (flag/default was {args.arch!r})")
         expected = TASKS[args.task].__name__
@@ -105,12 +122,19 @@ def cli_test(argv=None):
         os.path.join(args.image_root, "val2017"),
         os.path.join(args.annotation_root, ANNOTATIONS[args.task]),
     )
-    trainer = Trainer(task)
+    trainer = Trainer(task, mesh=mesh)
     trainer.init_state()
     if args.pretrained_weights_path:
         load_legacy_centernet_weights(args.pretrained_weights_path, task)
     elif args.checkpoint:
         restore_checkpoint(args.checkpoint, trainer.state)
+    if args.export_serving and rank == 0:
+        from ..utils.export import export_serving
+
+        export_serving(task, args.export_serving,
+                       input_size=args.export_size, batch=args.export_batch)
+        print(f"[cli_test] serving artifact written to "
+              f"{args.export_serving}")
 
     prefix = ""
     if args.multi_scale:
@@ -124,12 +148,15 @@ def cli_test(argv=None):
         # centernet_multi_pose.py:300-321)
         evals = [(prefix + "kp_", CocoEvaluator(coco_val.coco, "keypoints")),
                  (prefix + "bbox_", CocoEvaluator(coco_val.coco, "bbox"))]
+    # each rank decodes only its share of the ids
+    images = eval_images(coco_val, rank, world)
     if args.batched:
-        stats = trainer.test_batched(eval_images(coco_val), evals,
+        stats = trainer.test_batched(images, evals,
                                      batch_size=args.eval_batch_size)
     else:
-        stats = trainer.test(eval_images(coco_val), evals)
-    print(stats)
+        stats = trainer.test(images, evals)
+    if rank == 0:
+        print(stats)
     return stats
 
 

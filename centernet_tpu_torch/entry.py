@@ -1,16 +1,28 @@
-"""``entry()``: the port's counterpart of ``__graft_entry__.py::entry`` —
-dla_34 detection forward + ``ctdet_decode`` in bf16 on the card, with
-example arguments.
+"""Entry points, the port's counterparts of ``__graft_entry__.py``.
 
-    fn, args = entry()
-    dets = fn(*args)  # [1, 100, 6] on the card
+* ``entry()``: dla_34 detection forward + ``ctdet_decode`` in bf16 on the
+  card, with example arguments::
 
-The task is built on CUDA and raises without it; nothing runs on the CPU.
+      fn, args = entry()
+      dets = fn(*args)  # [1, 100, 6] on the card
+
+* ``dryrun_multichip(n)``: one real data-parallel train step of resdcn_18 at
+  64x64 over n ranks (one image each, rank i holding image i), so that the
+  DCN kernels' forward and backward run under data parallelism: NCCL over
+  the visible GPUs, or gloo ranks with ``device="cpu"``.
+
+Both build their tasks on CUDA and raise without it unless the CPU is
+asked for.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+DRYRUN_SIZE = 64
 
 
 def entry():
@@ -23,3 +35,63 @@ def entry():
     gen = torch.Generator(device=task.device).manual_seed(0)
     images = torch.rand(1, 512, 512, 3, generator=gen, device=task.device)
     return task.infer_decode, (images,)
+
+
+def _dryrun_rank(device_type: str) -> dict:
+    """One rank of ``dryrun_multichip``: its image, the global step."""
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .parallel.trainer import make_train_step
+    from .tasks.detection import CenterNetDetection
+
+    mesh = make_mesh(device_type=device_type)
+    device = (f"cuda:{torch.cuda.current_device()}"
+              if device_type == "cuda" else "cpu")
+    task = CenterNetDetection("resdcn_18", device=device, seed=0)
+    rank = dist.get_rank()
+    size = DRYRUN_SIZE
+    img = (255 * np.random.RandomState(rank).rand(1, size, size, 3)
+           ).astype(np.uint8)
+    boxes = np.zeros((1, task.max_objs, 4), np.float32)
+    boxes[0, :2] = [[10.0, 12.0, 20.0, 30.0], [30.0, 8.0, 14.0, 18.0]]
+    classes = np.zeros((1, task.max_objs), np.int32)
+    classes[0, :2] = [0, 2]  # COCO categories 1 and 3
+    target = {"boxes": boxes, "classes": classes,
+              "valid": (np.arange(task.max_objs) < 2)[None]}
+    step = make_train_step(task, task.configure_optimizer(1), mesh=mesh)
+    stats = step(img, target)
+    params = torch.cat([p.detach().reshape(-1).float()
+                        for p in task.model.parameters()])
+    return {"loss": float(stats["loss"]),
+            "params_sum": float(params.double().sum())}
+
+
+def dryrun_multichip(n_devices: Optional[int] = None,
+                     device: Optional[str] = None) -> float:
+    """Run one global-batch train step of resdcn_18 over ``n_devices``
+    ranks (default: every visible GPU; ``device="cpu"``: gloo ranks on the
+    CPU) and check that every rank saw the same finite loss and took the
+    same update; returns the loss."""
+    from .parallel.mesh import launch
+
+    kind = "cpu" if device == "cpu" else "cuda"
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass device='cpu' "
+                               "for gloo ranks on the CPU")
+        visible = torch.cuda.device_count()
+        n_devices = visible if n_devices is None else n_devices
+        if n_devices > visible:
+            raise RuntimeError(f"dryrun_multichip({n_devices}) needs "
+                               f"{n_devices} GPUs, {visible} are visible")
+    elif n_devices is None:
+        raise ValueError("dryrun_multichip on the CPU needs n_devices")
+    ranks = launch(_dryrun_rank, n_devices, kind, device_type=kind)
+    loss = ranks[0]["loss"]
+    if not np.isfinite(loss):
+        raise RuntimeError(f"non-finite loss {loss}")
+    if any(r != ranks[0] for r in ranks):
+        raise RuntimeError(f"the ranks disagree: {ranks}")
+    print(f"dryrun_multichip({n_devices}): OK, loss={loss:.4f}")
+    return loss

@@ -23,9 +23,10 @@ Semantics copied from the JAX module:
   split a tie) and sums ``dbias`` in f32.
 
 ``deform_conv2d`` and ``deform_conv2d_backward`` keep the JAX functions' NHWC
-layout and route by device: a CPU tensor goes to the plain PyTorch version, a
-CUDA tensor to the hand-written kernel (``dcn_cuda``), which raises rather
-than falls back.
+layout and call the operators ``centernet_tpu_torch::dcn_fwd`` / ``dcn_bwd``
+(``dcn_cuda``), which dispatch by device: a CPU tensor goes to the plain
+PyTorch version, a CUDA tensor to the hand-written kernel, which raises
+rather than falls back.
 """
 
 from __future__ import annotations
@@ -160,30 +161,25 @@ def deform_conv2d_backward_reference(x, offsets, mask, weight, g):
 def deform_conv2d(x, offsets, mask, weight, bias,
                   radius: int = 4) -> torch.Tensor:
     """DCNv2 forward with ``pallas_deform_conv_fwd``'s signature: offsets
-    already clamped to [-radius, radius - CLIP_EPS]. The CUDA kernel for CUDA
-    tensors, which stages the window of x that this radius allows; the plain
-    version for CPU tensors, which samples exactly and ignores ``radius``."""
-    weight = weight.to(x.dtype)
-    bias = bias.float()
-    if x.device.type == "cpu":
-        return deform_conv2d_reference(x, offsets, mask, weight, bias)
-    return dcn_cuda.deform_conv2d_cuda(
+    already clamped to [-radius, radius - CLIP_EPS]. The operator ``dcn_fwd``:
+    the CUDA kernel for CUDA tensors, which stages the window of x that this
+    radius allows; the plain version for CPU tensors, which samples exactly
+    and ignores ``radius``."""
+    return dcn_cuda.dcn_fwd(
         x.contiguous(), offsets.float().contiguous(), mask.float().contiguous(),
-        weight.contiguous(), bias.contiguous(), int(radius))
+        weight.to(x.dtype).contiguous(), bias.float().contiguous(),
+        int(radius))
 
 
 def deform_conv2d_backward(x, offsets, mask, weight, g, radius: int = 4):
     """DCNv2 backward with ``pallas_deform_conv_bwd``'s signature (offsets
     clamped to [-radius, radius - CLIP_EPS]; see
-    ``deform_conv2d_backward_reference``): the CUDA kernel for CUDA tensors,
-    the plain version, which ignores ``radius``, for CPU tensors."""
-    weight = weight.to(x.dtype)
-    g = g.float()
-    if x.device.type == "cpu":
-        return deform_conv2d_backward_reference(x, offsets, mask, weight, g)
-    return dcn_cuda.deform_conv2d_backward_cuda(
+    ``deform_conv2d_backward_reference``), the operator ``dcn_bwd``: the
+    CUDA kernel for CUDA tensors, the plain version, which ignores
+    ``radius``, for CPU tensors."""
+    return dcn_cuda.dcn_bwd(
         x.contiguous(), offsets.float().contiguous(), mask.float().contiguous(),
-        weight.contiguous(), g.contiguous(), int(radius))
+        weight.to(x.dtype).contiguous(), g.float().contiguous(), int(radius))
 
 
 class DeformConv2dFunction(torch.autograd.Function):
@@ -191,9 +187,9 @@ class DeformConv2dFunction(torch.autograd.Function):
     of ``banded_deform_conv_vjp``: ``apply(x, offsets, mask, weight, bias,
     radius)`` with raw offsets [B,H,W,18], weight [9*Ci,Co] in any float
     dtype (cast to x's), bias [Co] -> [B,H,W,Co] f32. The forward runs
-    ``deform_conv2d``, the backward ``deform_conv2d_backward``; gradients
-    come back as dx in x's dtype, offsets' and mask's in f32, weight's and
-    bias's in their own dtypes."""
+    ``deform_conv2d``, the backward ``deform_conv2d_backward`` (the two
+    operators); gradients come back as dx in x's dtype, offsets' and mask's
+    in f32, weight's and bias's in their own dtypes."""
 
     @staticmethod
     def forward(ctx, x, offsets, mask, weight, bias, radius):
@@ -265,17 +261,19 @@ class DCN(CastCache, nn.Module):
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
         offsets = om[..., :2 * KK].float()
         mask = torch.sigmoid(om[..., 2 * KK:].float())
+        lo, hi = -float(r), float(r) - CLIP_EPS
         if recording(self):
             # straight-through clamp (JAX ops/dcn.py:1393-1402): the forward
             # sees the clamped value, the gradient reaches the raw offsets
-            clamped = offsets.clamp(-float(r), float(r) - CLIP_EPS)
-            offsets = offsets + (clamped - offsets).detach()
-            wmat = dcn_weight_matrix(self.weight)
-        else:
+            offsets = offsets + (offsets.clamp(lo, hi) - offsets).detach()
+            y = DeformConv2dFunction.apply(
+                x.permute(0, 2, 3, 1), offsets, mask,
+                dcn_weight_matrix(self.weight), self.bias, r)
+        else:  # serving: the forward operator alone (torch.export traces it)
             wmat = self.cached(
                 "weight", lambda t: dcn_weight_matrix(t).to(self.dtype))
-        y = DeformConv2dFunction.apply(x.permute(0, 2, 3, 1), offsets, mask,
-                                       wmat, self.bias, r)
+            y = deform_conv2d(x.permute(0, 2, 3, 1), offsets.clamp(lo, hi),
+                              mask, wmat, self.bias, r)
         return y.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
 
 

@@ -17,6 +17,12 @@ C side refuses a plan whose sizes it does not arrive at itself.
 ``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` grow by one at
 every call that launches the kernel and nowhere else, so a run can show that
 its path went through the kernels.
+
+The operators ``torch.ops.centernet_tpu_torch.dcn_fwd`` and ``.dcn_bwd``
+(``torch.library.custom_op``) dispatch by device: the kernels for CUDA
+tensors, the plain versions of ``ops/dcn.py`` for CPU tensors, and a fake
+implementation (shapes and types only) while ``torch.export`` traces. The
+checks on data pointers stay in the real implementations.
 """
 
 from __future__ import annotations
@@ -323,15 +329,13 @@ def deform_conv2d_backward_cuda(x, offsets, mask, weight, g,
     plan = launch_plan(b, h, w, ci, co, x.dtype, radius, _sms(dev))
     bwd = plan["bwd"]
     lib = _load()
-    # dx, dty, dtx and dmask are accumulated with atomics: one zeroed buffer,
-    # cut up (float4-aligned parts); the first launch zeroes dw itself
-    px = b * h * w
-    n_dx, n_tap = _cdiv(px * ci, 4) * 4, _cdiv(px * 9, 4) * 4
-    flat = torch.zeros(n_dx + 3 * n_tap, dtype=torch.float32, device=dev)
-    dx = flat.as_strided((b, h, w, ci), (h * w * ci, w * ci, ci, 1))
-    dty, dtx, dmask = (
-        flat.as_strided((b, h, w, 9), (h * w * 9, w * 9, 9, 1),
-                        n_dx + i * n_tap) for i in range(3))
+    # dx, dty, dtx and dmask are accumulated with atomics into zeroed
+    # buffers, one each (an operator's outputs may not share storage),
+    # zeroed together by one launch; the first kernel zeroes dw itself
+    dx = torch.empty((b, h, w, ci), dtype=torch.float32, device=dev)
+    dty, dtx, dmask = (torch.empty((b, h, w, 9), dtype=torch.float32,
+                                   device=dev) for _ in range(3))
+    torch._foreach_zero_([dx, dty, dtx, dmask])
     dw = torch.empty((9 * ci, co), dtype=torch.float32, device=dev)
     if dx.numel() == 0 or co == 0:
         return dx.to(x.dtype), dty, dtx, dmask, dw.zero_()
@@ -351,3 +355,60 @@ def deform_conv2d_backward_cuda(x, offsets, mask, weight, g,
     # the tiles' overlapping dx windows are summed in f32 in device memory;
     # the one rounding to x's dtype comes after the last of them
     return dx.to(x.dtype), dty, dtx, dmask, dw
+
+
+# ------------------------------------------------------------- the operators --
+# Both kernels as PyTorch operators, so that torch.export (and later
+# torch.compile) can trace a call: the fake implementations give the outputs'
+# shapes and types without touching data, the CUDA implementations launch the
+# kernels above (and count), the CPU implementations are the plain versions
+# in ``ops/dcn.py``. A CUDA tensor always reaches the kernel: a kernel that
+# fails to build or launch raises. Neither operator is differentiable by
+# itself: ``ops/dcn.py::DeformConv2dFunction`` pairs them.
+
+@torch.library.custom_op("centernet_tpu_torch::dcn_fwd", mutates_args=(),
+                         device_types="cuda")
+def dcn_fwd(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+            weight: torch.Tensor, bias: torch.Tensor, radius: int
+            ) -> torch.Tensor:
+    """``deform_conv2d_cuda`` as an operator (same arguments)."""
+    return deform_conv2d_cuda(x, offsets, mask, weight, bias, radius)
+
+
+@dcn_fwd.register_kernel("cpu")
+def _dcn_fwd_cpu(x, offsets, mask, weight, bias, radius):
+    from .dcn import deform_conv2d_reference
+
+    return deform_conv2d_reference(x, offsets, mask, weight, bias)
+
+
+@dcn_fwd.register_fake
+def _dcn_fwd_fake(x, offsets, mask, weight, bias, radius):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h, w, weight.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("centernet_tpu_torch::dcn_bwd", mutates_args=(),
+                         device_types="cuda")
+def dcn_bwd(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
+            weight: torch.Tensor, g: torch.Tensor, radius: int
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """``deform_conv2d_backward_cuda`` as an operator: (dx, dty, dtx,
+    dmask, dw)."""
+    return deform_conv2d_backward_cuda(x, offsets, mask, weight, g, radius)
+
+
+@dcn_bwd.register_kernel("cpu")
+def _dcn_bwd_cpu(x, offsets, mask, weight, g, radius):
+    from .dcn import deform_conv2d_backward_reference
+
+    return deform_conv2d_backward_reference(x, offsets, mask, weight, g)
+
+
+@dcn_bwd.register_fake
+def _dcn_bwd_fake(x, offsets, mask, weight, g, radius):
+    b, h, w, _ = x.shape
+    taps = [x.new_empty((b, h, w, 9), dtype=torch.float32) for _ in range(3)]
+    return (x.new_empty(x.shape), *taps,
+            x.new_empty(weight.shape, dtype=torch.float32))

@@ -8,11 +8,29 @@
   optimizer step or ``load_state_dict`` writes the parameter in place, which
   bumps its version counter, and a move to another device changes its
   storage. A served forward therefore launches no cast kernel per conv.
+  A trace (``torch.export``, ``torch.compile``) stores nothing in the
+  cache: a traced parameter has no storage to key on, and the cache must
+  not keep a traced tensor. It traces the cast, or, inside
+  ``casts_from_cache()``, takes the cached copy as a constant of the
+  program: the serving export (``utils/export.py``) fills the caches with
+  one eager forward just before it traces, so the program holds the cast
+  weights and launches no cast per call.
 * ``BatchNorm2d`` updates its running statistics as ``flax.linen.BatchNorm``
   does: ``ra = 0.9 * ra + 0.1 * batch`` with the *biased* batch variance
   (``torch.nn.BatchNorm2d`` folds in the unbiased one, ``n / (n - 1)`` times
   larger), eps 1e-5. It keeps f32 parameters and statistics, takes and
   returns the compute dtype, and does its affine math in f32.
+* ``global_statistics(module, group)``: while it is active, the train-mode
+  BatchNorms under ``module`` normalise with the statistics of the global
+  batch of a data-parallel ``group`` (a ``torch.distributed`` process
+  group), as the JAX step's do under a data-sharded jit: each rank sums its
+  rows and their squares per channel in f32, one differentiable all-reduce
+  (``torch.distributed.nn.functional.all_reduce``) adds the sums and the row
+  counts of every rank, and the mean and the biased variance follow (flax's
+  ``E[x^2] - E[x]^2``, floored at 0). The backward all-reduces the
+  statistics' gradients, so each rank's gradient is its share of the
+  global one. Every rank updates its running statistics from the same
+  global values, which therefore stay identical across the ranks.
 * ``frozen_statistics(module)``: while it is active, the train-mode
   BatchNorms under ``module`` normalise with the batch's statistics as
   always but leave their running statistics alone. A checkpointed forward
@@ -35,6 +53,24 @@ def recording(module: nn.Module) -> bool:
     return module.training or torch.is_grad_enabled()
 
 
+_CASTS_FROM_CACHE = False
+
+
+@contextlib.contextmanager
+def casts_from_cache():
+    """While active, a traced forward takes each cast copy that its module
+    has cached as a constant instead of tracing the cast (see the module
+    docstring). The caller makes sure the caches are fresh: one eager
+    forward of the same module, with the parameters as they are, just
+    before the trace."""
+    global _CASTS_FROM_CACHE
+    before, _CASTS_FROM_CACHE = _CASTS_FROM_CACHE, True
+    try:
+        yield
+    finally:
+        _CASTS_FROM_CACHE = before
+
+
 class CastCache:
     """Mixin for modules holding f32 parameters used in another dtype."""
 
@@ -43,6 +79,11 @@ class CastCache:
         """``make(param)`` for a forward that autograd does not record,
         computed once per value of the parameter."""
         p = getattr(self, name)
+        if torch.compiler.is_compiling():
+            hit = self.__dict__.get("_cast_cache", {}).get(name)
+            if _CASTS_FROM_CACHE and hit is not None:
+                return hit[1]
+            return make(p.detach())
         key = (p.data_ptr(), p._version, p.device)
         cache = self.__dict__.setdefault("_cast_cache", {})
         hit = cache.get(name)
@@ -80,22 +121,62 @@ class BatchNorm2d(nn.BatchNorm2d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.update_statistics = True
+        self.group = None  # set by ``global_statistics``
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.group is not None:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         if not self.update_statistics:
             return y
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(self.eps).float()  # biased
+            if var is None:
+                var = invstd.double().pow(-2).sub(self.eps).float()  # biased
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean * m)
             self.running_var.mul_(1.0 - m).add_(var * m)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x):
+        """(y, mean, biased var) over the rows of every rank of
+        ``self.group`` (see the module docstring)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.float()
+        rows = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                          device=x.device)
+        sums = all_reduce(torch.cat([xf.sum((0, 2, 3)),
+                                     xf.square().sum((0, 2, 3)), rows]),
+                          group=self.group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        y = xf * scale[:, None, None] + shift[:, None, None]
+        return y.to(x.dtype), mean, var
+
+
+@contextlib.contextmanager
+def global_statistics(module: nn.Module, group):
+    """Normalise every train-mode ``BatchNorm2d`` under ``module`` with the
+    global batch of the data-parallel ``group`` while the context is active
+    (see the module docstring); ``None`` leaves them local."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
 
 
 @contextlib.contextmanager

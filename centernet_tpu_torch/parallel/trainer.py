@@ -1,5 +1,6 @@
 """Train and eval steps and the fit loop, PyTorch port of
-``centernet_tpu/parallel/trainer.py`` on one device.
+``centernet_tpu/parallel/trainer.py``, on one device or data-parallel over
+the ranks of a mesh's ``data`` axis (``parallel/mesh.py``).
 
 * ``make_train_step``: one Adam update (accumulation, global-norm clip).
 * ``make_eval_step``: the loss in eval mode.
@@ -10,8 +11,17 @@
   ``test`` (per-image TTA) and ``test_batched`` (fixed-shape batches), both
   scored by a COCO evaluator.
 
-The JAX trainer's mesh, batch sharding and process allgather are the
-data-parallel slice's (ROADMAP A10).
+Data parallelism keeps the JAX package's global-batch semantics (its jit
+over a data-sharded batch): each rank holds a contiguous slice of every
+global batch; BatchNorm normalises with the global batch's statistics and
+every loss normaliser counts the global batch, so a rank's loss is its
+share of the global one and its gradient its share of the global gradient.
+One all-reduce sums the gradients (not a mean, hence no DDP wrapper), the
+clip sees the global norm, and every rank takes the same Adam update. The
+step's only device-side collectives are ``all_reduce`` and ``broadcast``.
+Evaluation takes each rank's share of the images (the caller strides the
+ids) and gathers the COCO rows of every rank, in rank order, before
+scoring.
 """
 
 from __future__ import annotations
@@ -20,17 +30,54 @@ import dataclasses
 import os
 import time
 from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
-                    Tuple)
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..ops.modules import global_statistics
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
+from .mesh import data_group, data_rank_and_size
+
+
+def _all_reduced_stats(stats: Dict[str, torch.Tensor], group
+                       ) -> Dict[str, torch.Tensor]:
+    """Each rank's share of the loss parts summed over ``group`` (one
+    all-reduce)."""
+    if group is None:
+        return stats
+    flat = torch.stack([v.detach() for v in stats.values()])
+    dist.all_reduce(flat, group=group)
+    return dict(zip(stats, flat.unbind()))
+
+
+def _all_reduce_grads(params, group) -> None:
+    """Sum the parameters' gradients over ``group`` in one all-reduce. Every
+    rank runs the same model, so the same parameters have gradients."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def broadcast_state(model: torch.nn.Module, group) -> None:
+    """Copy the group's first rank's parameters and buffers to every rank."""
+    src = dist.get_global_rank(group, 0)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            dist.broadcast(t, src=src, group=group)
 
 
 def make_train_step(task, opt, accumulate_grad_batches: int = 1,
-                    gradient_clip_val: Optional[float] = None) -> Callable:
+                    gradient_clip_val: Optional[float] = None,
+                    mesh=None) -> Callable:
     """Build ``step(images, target) -> stats`` for ``task`` and ``opt``
     (``task.configure_optimizer``).
 
@@ -41,17 +88,23 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
     takes one update. ``accumulate_grad_batches`` = K > 1 splits the batch
     into K micro-batches, strided as the JAX step splits it (micro-batch j
     holds rows j, j + K, ...): each runs its own BatchNorm statistics and the
-    update sees the mean gradient. ``stats`` are the loss and its three
-    parts, averaged over the micro-batches, as 0-d tensors on the device.
+    update sees the mean gradient. ``stats`` are the loss and its parts,
+    averaged over the micro-batches, as 0-d tensors on the device.
+
+    With a ``mesh``, the step runs on every rank of its ``data`` axis, each
+    with its contiguous slice of the global batch (whose size must divide
+    by K times the ranks, as micro-batch j is then rows j, j + K, ... of
+    the global batch too): the parameters and buffers are broadcast from
+    the first rank when the step is built, BatchNorm and the loss see the
+    global micro-batch (``global_statistics``, ``task.loss(..., group)``),
+    the gradients are summed over the ranks before the clip, and ``stats``
+    are the global batch's on every rank.
     """
     k = accumulate_grad_batches
     params = [p for p in task.model.parameters() if p.requires_grad]
-
-    def losses(img, target):
-        x = img.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        outputs = [{name: v.permute(0, 2, 3, 1) for name, v in out.items()}
-                   for out in task.model(x)]
-        return task.loss(outputs, target)
+    group = data_group(mesh)
+    if group is not None:
+        broadcast_state(task.model, group)
 
     def step(images, target) -> Dict[str, torch.Tensor]:
         img, target = _to_device(task, images, target)
@@ -62,18 +115,22 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
         task.train()
         try:
             opt.zero_grad()
-            for j in range(k):
-                loss, parts = losses(
-                    img[j::k], {name: v[j::k] for name, v in target.items()})
-                (loss / k).backward()
-                for name, v in parts.items():
-                    stats[name] = stats.get(name, 0.0) + v.detach() / k
+            with global_statistics(task.model, group):
+                for j in range(k):
+                    loss, parts = task.loss(
+                        task.heads_nhwc(img[j::k]),
+                        {name: v[j::k] for name, v in target.items()}, group)
+                    (loss / k).backward()
+                    for name, v in parts.items():
+                        stats[name] = stats.get(name, 0.0) + v.detach() / k
+            if group is not None:
+                _all_reduce_grads(params, group)
             if gradient_clip_val:
                 torch.nn.utils.clip_grad_norm_(params, gradient_clip_val)
             opt.step()
         finally:
             task.eval()
-        return stats
+        return _all_reduced_stats(stats, group)
 
     return step
 
@@ -85,15 +142,17 @@ def _to_device(task, images, target):
     return img, task.maybe_encode_targets(tuple(img.shape[1:3]), target)
 
 
-def make_eval_step(task) -> Callable:
+def make_eval_step(task, mesh=None) -> Callable:
     """Build ``eval_step(images, target) -> stats``: the loss and its parts
-    of the model in eval mode (running BN statistics), as 0-d tensors."""
+    of the model in eval mode (running BN statistics), as 0-d tensors; with
+    a ``mesh``, those of the global batch whose slice each rank holds."""
+    group = data_group(mesh)
 
     @torch.inference_mode()
     def eval_step(images, target) -> Dict[str, torch.Tensor]:
         img, target = _to_device(task, images, target)
-        _, stats = task.loss(task.apply(img), target)
-        return stats
+        _, stats = task.loss(task.apply(img), target, group)
+        return _all_reduced_stats(stats, group)
 
     return eval_step
 
@@ -163,12 +222,30 @@ class CheckpointCallback:
         self._best = self._best[: self.save_top_k]
 
 
+def merge_rank_results(per_rank: Sequence[Sequence]) -> list:
+    """The COCO rows that every rank scored, one list per rank in rank
+    order, as one list: rank 0's rows first (the counterpart of the JAX
+    package's ``_unpad_gathered_json``)."""
+    return [row for rows in per_rank for row in rows]
+
+
+def _gather_rows(rows: list, group) -> list:
+    """Every rank's ``rows`` (host data), merged in rank order."""
+    per_rank: List[Optional[list]] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(per_rank, rows, group=group)
+    return merge_rank_results(per_rank)
+
+
 class Trainer:
-    """Fit, validate, checkpoint and evaluate a task on its device."""
+    """Fit, validate, checkpoint and evaluate a task on its device; with a
+    ``mesh``, data-parallel over its ``data`` axis (one process per rank,
+    each with its slice of the loaders' global batches). The first rank
+    alone logs and writes checkpoints."""
 
     def __init__(
         self,
         task,
+        mesh=None,
         max_epochs: int = 1,
         limit_train_batches: Optional[int] = None,
         limit_val_batches: Optional[int] = None,
@@ -180,10 +257,13 @@ class Trainer:
         accumulate_grad_batches: int = 1,
     ):
         self.task = task
+        self.mesh = mesh
+        self.group = data_group(mesh)
+        self.rank, self.world = data_rank_and_size(mesh)
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
-        self.logger = MetricsLogger(log_dir)
+        self.logger = MetricsLogger(log_dir if self.rank == 0 else None)
         self.checkpoint = checkpoint
         self.log_every_n_steps = max(1, log_every_n_steps)
         self.steps_per_epoch = max(1, steps_per_epoch_hint)
@@ -228,15 +308,15 @@ class Trainer:
         train_step = make_train_step(
             self.task, self.state.opt,
             accumulate_grad_batches=self.accumulate_grad_batches,
-            gradient_clip_val=self.gradient_clip_val)
-        eval_step = make_eval_step(self.task)
+            gradient_clip_val=self.gradient_clip_val, mesh=self.mesh)
+        eval_step = make_eval_step(self.task, mesh=self.mesh)
 
         for epoch in range(start_epoch, self.max_epochs):
             t0 = time.perf_counter()
             n_images = 0
             limit = self.limit_train_batches
             for i, (img, target) in self._limited(train_loader, limit):
-                n_images += img.shape[0]
+                n_images += img.shape[0] * self.world  # the global batch
                 stats = train_step(img, target)
                 self.state.step += 1
                 # reading the stats waits for the device: only on the
@@ -265,13 +345,15 @@ class Trainer:
             metrics["learning_rate"] = self._current_lr()
             self.logger.log_epoch(epoch, metrics)
 
-            if self.checkpoint is not None:
+            if self.checkpoint is not None and self.rank == 0:
                 self.checkpoint.on_epoch_end(
                     epoch, metrics,
                     lambda path: save_checkpoint(
                         path, self.state,
                         meta={"epoch": epoch,
                               "hparams": self.task.hparams()}))
+            if self.group is not None:
+                dist.barrier(self.group)  # the checkpoint is on disk
         return self.state
 
     def _current_lr(self) -> float:
@@ -283,9 +365,10 @@ class Trainer:
     def test_batched(self, dataset, coco_eval=None, prefix: str = "",
                      batch_size: int = 16, input_size: int = 512
                      ) -> Dict[str, float]:
-        """Batched single-scale evaluation over (img_hwc, image_id) pairs:
-        every image resized and padded to ``input_size`` square
-        (``prepare_image_fixed``), one device round trip per
+        """Batched single-scale evaluation over (img_hwc, image_id) pairs,
+        this rank's share of the dataset (``cli/detection.py::eval_images``
+        strides the ids): every image resized and padded to ``input_size``
+        square (``prepare_image_fixed``), one device round trip per
         ``batch_size`` images."""
         results = []
         buf_imgs, buf_metas, buf_ids = [], [], []
@@ -311,9 +394,9 @@ class Trainer:
 
     def test(self, dataset, coco_eval=None, prefix: str = ""
              ) -> Dict[str, float]:
-        """TTA prediction (``task.predict``) over (img_hwc, image_id) pairs
-        and, given a COCO evaluator, its AP stats (reference trainer.test,
-        centernet_detection.py:227-265)."""
+        """TTA prediction (``task.predict``) over (img_hwc, image_id) pairs,
+        this rank's share of the dataset, and, given a COCO evaluator, its
+        AP stats (reference trainer.test, centernet_detection.py:227-265)."""
         results = [(image_id, self.task.predict(img))
                    for img, image_id in dataset]
         return self._evaluate_results(results, coco_eval, prefix)
@@ -322,7 +405,8 @@ class Trainer:
                           ) -> Dict[str, float]:
         """Score (image_id, detections) pairs. ``coco_eval`` is one evaluator
         (scored under ``prefix``) or a list of (prefix, evaluator) pairs fed
-        the same detections."""
+        the same detections. Every rank's COCO rows are gathered first, so
+        every rank scores the whole dataset."""
         if coco_eval is None:
             return {}
         evals = (list(coco_eval) if isinstance(coco_eval, (list, tuple))
@@ -330,6 +414,8 @@ class Trainer:
         coco_results = []
         for image_id, det in results:
             coco_results.extend(self.task.to_coco_format(image_id, det))
+        if self.group is not None:
+            coco_results = _gather_rows(coco_results, self.group)
         out: Dict[str, float] = {}
         for pfx, ev in evals:
             stats = ev(coco_results)

@@ -214,13 +214,18 @@ class CenterNet:
             x = x.float() * self._norm_scale + self._norm_bias
         return x
 
+    def heads_nhwc(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """The model on normalised NHWC f32 images on the task's device ->
+        per stack, a dict of NHWC f32 head outputs (in the model's mode,
+        recorded by autograd where it is on)."""
+        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return [{k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+                for out in self.model(x)]
+
     @torch.inference_mode()
     def apply(self, images) -> List[Dict[str, torch.Tensor]]:
         """NHWC images -> per stack, a dict of NHWC f32 head outputs."""
-        x = self.prep_images(images).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
-        return [{k: v.permute(0, 2, 3, 1) for k, v in out.items()}
-                for out in self.model(x)]
+        return self.heads_nhwc(self.prep_images(images))
 
     def maybe_encode_targets(self, input_hw: Tuple[int, int],
                              target: Dict[str, torch.Tensor]):

@@ -117,20 +117,23 @@ class CenterNetDetection(CenterNet):
             tuple(input_hw), num_classes=self.num_classes,
             down_ratio=self.down_ratio)
 
-    def loss(self, outputs, target):
+    def loss(self, outputs, target, group=None):
         """Weighted multi-head loss averaged over stacks: ``outputs`` per
         stack a dict of NHWC f32 head maps -> (loss, {"loss", "hm_loss",
-        "wh_loss", "off_loss"})."""
+        "wh_loss", "off_loss"}). Under a data-parallel ``group`` each is
+        this rank's share of the global batch's (``ops.losses``)."""
         hm_loss = wh_loss = off_loss = 0.0
         for output in outputs:
             hm_loss += focal_loss(sigmoid_clamped(output["heatmap"]),
-                                  target["heatmap"])
+                                  target["heatmap"], group)
             wh_loss += reg_l1_loss(output["width_height"],
                                    target["regression_mask"],
-                                   target["indices"], target["width_height"])
+                                   target["indices"], target["width_height"],
+                                   group)
             off_loss += reg_l1_loss(output["regression"],
                                     target["regression_mask"],
-                                    target["indices"], target["regression"])
+                                    target["indices"], target["regression"],
+                                    group)
         loss = (self.hm_weight * hm_loss + self.wh_weight * wh_loss
                 + self.off_weight * off_loss) / len(outputs)
         return loss, {"loss": loss, "hm_loss": hm_loss, "wh_loss": wh_loss,
@@ -144,7 +147,12 @@ class CenterNetDetection(CenterNet):
         [B, 2] bounds the candidates to the un-padded region. With ``flip``
         the batch is [image, mirrored image]: their heatmaps and sizes are
         averaged (the mirror's flipped back) and [1, K, 6] decoded."""
-        out = self.apply(images)[-1]
+        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
+
+    def decode_heads(self, out, valid_hw=None, flip: bool = False
+                     ) -> torch.Tensor:
+        """``infer_decode`` after the forward: the last stack's NHWC head
+        maps -> [B, K, 6] (the serving export traces it)."""
         hm, wh, reg = out["heatmap"], out["width_height"], out["regression"]
         if flip:
             hm = (hm[0:1] + hm[1:2].flip(2)) / 2.0

@@ -105,32 +105,35 @@ class CenterNetMultiPose(CenterNet):
             down_ratio=self.down_ratio)
         return {**det, **pose}
 
-    def loss(self, outputs, target):
+    def loss(self, outputs, target, group=None):
         """The six-term pose loss averaged over stacks -> (loss, {"loss",
         "hm_loss", "kp_loss", "hm_kp_loss", "hm_offset_loss", "wh_loss",
-        "off_loss"})."""
+        "off_loss"}). Under a data-parallel ``group`` each is this rank's
+        share of the global batch's (``ops.losses``)."""
         hm_loss = wh_loss = off_loss = 0.0
         kp_loss = hm_kp_loss = hm_offset_loss = 0.0
         for output in outputs:
             hm_loss += focal_loss(sigmoid_clamped(output["heatmap"]),
-                                  target["heatmap"])
+                                  target["heatmap"], group)
             wh_loss += reg_l1_loss(output["width_height"],
                                    target["regression_mask"],
-                                   target["indices"], target["width_height"])
+                                   target["indices"], target["width_height"],
+                                   group)
             off_loss += reg_l1_loss(output["regression"],
                                     target["regression_mask"],
-                                    target["indices"], target["regression"])
+                                    target["indices"], target["regression"],
+                                    group)
             kp_loss += reg_weighted_l1_loss(
                 output["keypoints"], target["keypoints_mask"],
-                target["indices"], target["keypoints"])
+                target["indices"], target["keypoints"], group)
             hm_kp_loss += focal_loss(
                 sigmoid_clamped(output["heatmap_keypoints"]),
-                target["heatmap_keypoints"])
+                target["heatmap_keypoints"], group)
             hm_offset_loss += reg_l1_loss(
                 output["heatmap_keypoints_offset"],
                 target["heatmap_keypoints_mask"],
                 target["heatmap_keypoints_indices"],
-                target["heatmap_keypoints_offset"])
+                target["heatmap_keypoints_offset"], group)
         loss = (self.hm_weight * hm_loss + self.wh_weight * wh_loss
                 + self.off_weight * off_loss + self.hp_weight * kp_loss
                 + self.hm_hp_weight * hm_kp_loss
@@ -168,7 +171,12 @@ class CenterNetMultiPose(CenterNet):
         ``valid_hw`` [B, 2] bounds person and joint peaks to the un-padded
         region. With ``flip`` the batch is [image, mirrored image] and [1, K,
         40 + J] is decoded from their merged maps (``flip_merge``)."""
-        out = self.apply(images)[-1]
+        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
+
+    def decode_heads(self, out, valid_hw=None, flip: bool = False
+                     ) -> torch.Tensor:
+        """``infer_decode`` after the forward: the last stack's NHWC head
+        maps -> [B, K, 40 + J] (the serving export traces it)."""
         if flip:
             out = self.flip_merge(out)
         return multi_pose_decode(

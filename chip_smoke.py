@@ -88,7 +88,23 @@ raises and the script exits non-zero without printing a result:
    radius 1, detection and pose at the JAX tests' thresholds), each from
    GATE_SEEDS model inits, of which at least one must pass (a gate's
    trajectory is chaotic and the card's sums vary from run to run; the
-   passes are counted).
+   passes are counted);
+12. export and data parallelism: ``torch.library.opcheck`` of both
+   operators at 128x128 C64->64 bf16 B4; dla_34 detection and pose (512x512,
+   bf16, B4, phase 4's seeded weights) exported (``utils/export.py``: 16
+   ``dcn_fwd`` nodes, no cast copy cached by the trace), loaded and run in a
+   fresh interpreter that imports the port's export module alone (16
+   ``dcn_fwd`` launches per call, rows equal to the live ``infer_decode``'s
+   at phase 4's tolerances, a B1 input raising), both paths timed (CUDA
+   events, host enqueue, device busy); two gloo ranks on the one card
+   (``parallel.mesh.launch``; NCCL takes no two ranks on one GPU), each with
+   B4 of a global B8: one f32 step against one process's B8 (loss and parts
+   1e-3 relative, phase 7's gradient rule, BatchNorm statistics 1e-3), then
+   3 bf16 steps (16 launches of each kernel per rank and step, the
+   parameters bitwise equal across the ranks; their times are labelled as
+   two ranks sharing one card, not a scaling number); an NCCL group of one
+   through the all-reduce path against no group (f32 loss within 1e-6);
+   ``cli.detection --num_devices 2`` refused by name on the one card.
 
 Every kernel time printed by launched kernel name is checked against the
 CUDA-event time of the same call and dropped when they disagree (the
@@ -105,6 +121,7 @@ import collections
 import contextlib
 import faulthandler
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2307,6 +2324,512 @@ def run_pose_and_radius(dev, card, rng):
     return out
 
 
+# --------------------------------------------------------------- phase 12 ---
+
+# 12(a): both operators under torch.library.opcheck at one dla_34 shape
+# (B, map side, Ci, Co), bf16. Its eager-against-traced comparison runs the
+# kernels twice: dx (bf16, from f32 atomics) may land one bf16 step apart
+# (2**-8 relative), dW's f32 atomics sum in another order each run.
+OPCHECK_SHAPE = (4, 128, 64, 64)
+OPCHECK_RTOL, OPCHECK_ATOL = 1e-2, 1e-3
+EXPORT_BATCH = 4
+# 12(c): two gloo ranks on the one card (NCCL takes no two ranks on one GPU)
+DP_RANKS = 2
+DP_LOCAL_B = 4
+DP_STEPS = 3
+DP_LABEL = "2 ranks sharing one card, gloo: not a scaling number"
+# f32 2 x B4 against one process's B8, TF32 off on both sides: the loss and
+# its parts (sums over ranks in another order, BatchNorm statistics from
+# all-reduced sums against cuDNN's), phase 7's gradient rule (the
+# backward's atomics, ReLU sign flips), the BatchNorm running statistics
+# (as max |a - b| / max(1, max |b|)). Each limit lies between the sound
+# step's reading and the faults' (``dp_faults``: rank-local BatchNorm
+# statistics, rank-local loss normalisers), which the run measures and
+# requires to exceed it.
+DP_LOSS_RTOL = 1e-5
+DP_STATS_TOL = 1e-5
+# NCCL group of one against no group: the loss of one f32 step (TF32 off),
+# whose only difference is the BatchNorm statistics' formula (~8e-7).
+NCCL_LOSS_RTOL = 3e-6
+
+# The serving programs in a fresh interpreter: it imports the port's export
+# module alone (which registers the DCN operators) and this script's timing
+# helpers; argv: (artifact, inputs, output file) for each program.
+SERVE_EXPORTED = """
+import sys
+import torch
+sys.path.insert(0, ".")
+from centernet_tpu_torch.utils.export import load_serving
+import chip_smoke as cs
+for i in range(1, len(sys.argv), 3):
+    path, inputs, out = sys.argv[i:i + 3]
+    call = load_serving(path)
+    dcn = sys.modules["centernet_tpu_torch.ops.dcn_cuda"]
+    imgs = torch.load(inputs).to(call.info["device"])
+    dcn.launch_counts.clear()
+    rows = call(imgs)
+    torch.cuda.synchronize()
+    launches = {k: dcn.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    for _ in range(3):
+        call(imgs)
+    ms = cs.cuda_ms(lambda: call(imgs), 20)
+    host_ms = cs.enqueue_ms(lambda: call(imgs), 10)
+    busy = cs.device_busy(lambda: call(imgs), 5)
+    try:
+        call(imgs[:1])
+        wrong_shape = None
+    except ValueError as exc:
+        wrong_shape = str(exc)
+    torch.save({"rows": rows.cpu(), "launches": launches, "ms": ms,
+                "host_ms": host_ms, "busy": busy, "info": call.info,
+                "wrong_shape": wrong_shape,
+                "modules": sorted(m for m in sys.modules if m.split(".")[0]
+                                  in ("centernet_tpu_torch", "centernet_tpu",
+                                      "jax", "flax"))}, out)
+    del call
+"""
+
+
+def check_ops_on_card(dev):
+    """12(a): ``torch.library.opcheck`` of both operators on the card."""
+    from centernet_tpu_torch.ops import dcn_cuda
+
+    b, hw, ci, co = OPCHECK_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x, off, mask, w, bias, r = dcn_inputs(b, hw, ci, co, torch.bfloat16,
+                                          gen, dev)
+    g = torch.randn(b, hw, hw, co, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    for op, args in ((dcn_cuda.dcn_fwd, (x, off, mask, w, bias, r)),
+                     (dcn_cuda.dcn_bwd, (x, off, mask, w, g, r))):
+        res = torch.library.opcheck(op, args, rtol=OPCHECK_RTOL,
+                                    atol=OPCHECK_ATOL)
+        bad = {k: v for k, v in res.items() if v != "SUCCESS"}
+        if bad:
+            raise RuntimeError(f"opcheck of {op}: {bad}")
+        print(f"opcheck {op._name}: {', '.join(sorted(res))} passed")
+    print(f"at B{b} {hw}x{hw} C{ci}->{co} bf16, radius {r}, "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def sorted_rows(rows):
+    """[B, K, C] decoded rows -> per image, its rows in a fixed order (score
+    descending, then class and box), so that two decodes compare as sets."""
+    out = []
+    for r in rows.float().cpu().numpy():
+        cls = r[:, 39] if r.shape[1] > 6 else r[:, 5]
+        order = np.lexsort((r[:, 1], r[:, 0], cls, -r[:, 4]))
+        out.append(r[order])
+    return np.stack(out)
+
+
+def export_live(dev, kind, workdir):
+    """12(b), in this process, for ``kind`` ("detection" or "multi_pose"):
+    dla_34 at 512x512, bf16, B4, phase 4's seeded weights, exported and
+    saved (16 dcn_fwd nodes, the weights as bf16 constants, no traced
+    tensor left in the cast caches); the live
+    ``infer_decode``'s rows and batch times on the same inputs."""
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+    from centernet_tpu_torch.tasks.multi_pose import CenterNetMultiPose
+    from centernet_tpu_torch.utils.export import export_serving
+
+    cls = CenterNetDetection if kind == "detection" else CenterNetMultiPose
+    task = cls("dla_34", dtype=torch.bfloat16, device=dev, seed=SEED)
+    seed_weights(task.model, SEED + 1)
+    rng = np.random.default_rng(SEED + 12)
+    imgs = task.prep_images(rng.integers(0, 256, (EXPORT_BATCH, HW, HW, 3),
+                                         dtype=np.uint8))
+    path = f"{workdir}/{kind}.pt2"
+    t0 = time.perf_counter()
+    program = export_serving(task, path, input_size=HW, batch=EXPORT_BATCH)
+    export_s = time.perf_counter() - t0
+    nodes = sum(1 for n in program.graph.nodes
+                if n.target is torch.ops.centernet_tpu_torch.dcn_fwd.default)
+    size_mb = os.path.getsize(path) / 2 ** 20
+    print(f"{kind}: exported in {export_s:.1f} s, {size_mb:.1f} MiB, "
+          f"{nodes} dcn_fwd nodes in the graph")
+    if nodes != 16:
+        raise RuntimeError(f"the exported graph holds {nodes} dcn_fwd nodes")
+    traced = [type(hit[1]).__name__ for m in task.model.modules()
+              for hit in m.__dict__.get("_cast_cache", {}).values()
+              if type(hit[1]) is not torch.Tensor]
+    if traced:
+        raise RuntimeError(f"the trace left traced tensors cached: {traced}")
+    # the weights as bf16 constants, no f32 weight matrix, no parameter
+    f32 = [tuple(v.shape) for v in program.constants.values()
+           if v.dtype == torch.float32 and v.dim() > 1]
+    if program.state_dict or f32:
+        raise RuntimeError(f"the program holds f32 weights: "
+                           f"{len(program.state_dict)} parameters, {f32}")
+    live = task.infer_decode(imgs)
+    for _ in range(3):
+        task.infer_decode(imgs)
+    timing = {"ms": cuda_ms(lambda: task.infer_decode(imgs), 20),
+              "host_ms": enqueue_ms(lambda: task.infer_decode(imgs), 10),
+              "busy": device_busy(lambda: task.infer_decode(imgs), 5)}
+    torch.save(imgs.cpu(), f"{workdir}/{kind}_inputs.pt")
+    return {"rows": live.cpu(), "timing": timing, "export_s": export_s,
+            "size_mib": size_mb, "dcn_nodes": nodes,
+            "args": [path, f"{workdir}/{kind}_inputs.pt",
+                     f"{workdir}/{kind}_out.pt"]}
+
+
+def serve_in_fresh_interpreter(exported):
+    """12(b): every exported program loaded and run in one fresh interpreter
+    that imports the port's export module alone; its results by kind."""
+    t0 = time.perf_counter()
+    args = [a for e in exported.values() for a in e["args"]]
+    res = subprocess.run([sys.executable, "-c", SERVE_EXPORTED, *args],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"the fresh interpreter failed:\n{res.stderr}")
+    got = {kind: torch.load(e["args"][2], weights_only=False)
+           for kind, e in exported.items()}
+    modules = got[next(iter(got))]["modules"]
+    print(f"loaded and ran {len(got)} programs in a fresh interpreter in "
+          f"{time.perf_counter() - t0:.1f} s; port modules there: {modules}")
+    if any(not m.startswith("centernet_tpu_torch") for m in modules):
+        raise RuntimeError("the serving process imported JAX or the JAX "
+                           "package")
+    if any(m.startswith("centernet_tpu_torch.tasks") for m in modules):
+        raise RuntimeError("the serving process needed the model's classes")
+    return got
+
+
+def check_served(kind, live, got, card):
+    """12(b): the loaded ``kind`` program against the live path: 16 dcn_fwd
+    launches per call and no dcn_bwd, a wrong shape raising, rows as sets
+    within phase 4's tolerances; both paths' batch times."""
+    print(f"{kind}: {got['info']}; kernel launches in one call "
+          f"{got['launches']}")
+    if got["launches"] != {"dcn_fwd": 16, "dcn_bwd": 0}:
+        raise RuntimeError(f"the loaded program's launches per call: "
+                           f"{got['launches']}, not 16 dcn_fwd alone")
+    if got["wrong_shape"] is None:
+        raise RuntimeError("a B1 input to the B4 program did not raise")
+    print(f"{kind}: a B1 input raised: {got['wrong_shape']}")
+    a, b = sorted_rows(got["rows"]), sorted_rows(live["rows"])
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise RuntimeError(f"rows {a.shape} against {b.shape}")
+    pose = a.shape[2] > 6
+    score_cols = [4] + (list(range(40, a.shape[2])) if pose else [])
+    box_cols = list(range(4)) + (list(range(5, 39)) if pose else [])
+    box_err = float(np.abs(a[..., box_cols] - b[..., box_cols]).max())
+    score_err = float(np.abs(a[..., score_cols] - b[..., score_cols]).max())
+    print(f"{kind}: loaded program vs live infer_decode, {a.shape[1]} rows "
+          f"an image: box{' and joint' if pose else ''} err {box_err:.3e} "
+          f"cells (tol {BOX_TOL}), score err {score_err:.3e} (tol "
+          f"{SCORE_TOL})")
+    if box_err > BOX_TOL or score_err > SCORE_TOL:
+        raise RuntimeError(f"{kind}: the loaded program disagrees")
+    for name, t in (("live", live["timing"]), ("loaded", got)):
+        print(f"{kind} {name} B{EXPORT_BATCH}: {t['ms']:.3f} ms per batch, "
+              f"{1e3 * EXPORT_BATCH / t['ms']:.1f} img/s; host enqueue "
+              f"{t['host_ms']:.3f} ms; device busy {t['busy']['busy_ms']:.3f}"
+              f" ms ({t['busy']['launches']:.0f} kernels), idle "
+              f"{1 - t['busy']['busy_ms'] / t['ms']:.1%} [{card}]")
+        print(f"  {name}: host ops with most self time (ms, calls per "
+              f"batch; under the profiler): " + "; ".join(
+                  f"{k} {ms:.3f} {n:.0f}"
+                  for k, ms, n in t["busy"]["host_top"]))
+
+    def times(t):
+        return {"ms": t["ms"], "host_ms": t["host_ms"],
+                "busy_ms": t["busy"]["busy_ms"],
+                "kernels": t["busy"]["launches"]}
+
+    return {"export_s": live["export_s"], "size_mib": live["size_mib"],
+            "dcn_nodes": live["dcn_nodes"],
+            "launches_per_call": got["launches"], "box_err": box_err,
+            "score_err": score_err, "live": times(live["timing"]),
+            "loaded": times(got)}
+
+
+def dp_task(dtype, device):
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    task = CenterNetDetection("dla_34", dtype=dtype, device=device,
+                              seed=SEED)
+    seed_weights(task.model, SEED + 1)
+    return task
+
+
+def dp_step_record(task, step, images, target, rows):
+    """One step on ``rows`` of the global batch: stats, launches, host ms."""
+    from centernet_tpu_torch.ops import dcn_cuda
+
+    before = dict(dcn_cuda.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = step(images[rows], {k: v[rows] for k, v in target.items()})
+    torch.cuda.synchronize()
+    return {"stats": {k: float(v) for k, v in stats.items()},
+            "ms": 1e3 * (time.perf_counter() - t0),
+            "launches": {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
+                         for k in ("dcn_fwd", "dcn_bwd")}}
+
+
+def model_state(model):
+    return {"grads": {n: (p.grad if p.grad is not None
+                          else torch.zeros_like(p)).float().cpu().numpy()
+                      for n, p in model.named_parameters()},
+            "running": {n: t.float().cpu().numpy()
+                        for n, t in model.state_dict().items()
+                        if "running" in n}}
+
+
+def dp_faults(mesh, images, target, rows):
+    """12(c)'s negative controls, in each rank: the f32 train-mode forward
+    of its slice from the same weights as the step's, with one part of the
+    global-batch semantics left out: BatchNorm with the rank's own
+    statistics, or the loss with the rank's own normalisers. Returns, by
+    fault, the loss and parts summed over the ranks as the step sums them,
+    and the BatchNorm running statistics."""
+    import torch.distributed as dist
+
+    from centernet_tpu_torch.ops.modules import global_statistics
+    from centernet_tpu_torch.parallel.mesh import data_group
+
+    group = data_group(mesh)
+    out = {}
+    for fault in ("rank-local BatchNorm statistics",
+                  "rank-local loss normalisers"):
+        task = dp_task(torch.float32, "cuda")
+        img = task.prep_images(images[rows])
+        tgt = task.maybe_encode_targets(
+            tuple(img.shape[1:3]), {k: v[rows] for k, v in target.items()})
+        task.train()
+        with torch.no_grad():
+            if fault == "rank-local BatchNorm statistics":
+                _, parts = task.loss(task.heads_nhwc(img), tgt, group)
+            else:
+                with global_statistics(task.model, group):
+                    _, parts = task.loss(task.heads_nhwc(img), tgt, None)
+        task.eval()
+        flat = torch.stack(list(parts.values()))
+        dist.all_reduce(flat, group=group)
+        out[fault] = {"stats": dict(zip(parts, flat.tolist())),
+                      "running": model_state(task.model)["running"]}
+        del task
+    return out
+
+
+def dp_rank():
+    """12(c), in each of the two gloo ranks on the card: one f32 step of
+    its B4 slice of the global B8 (stats, gradients, BatchNorm statistics),
+    then DP_STEPS bf16 steps (stats, launches, times, a digest of the
+    parameters)."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from centernet_tpu_torch.parallel.mesh import make_mesh
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device_type="cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rows = slice(rank * DP_LOCAL_B, (rank + 1) * DP_LOCAL_B)
+    images, target = train_batch(np.random.default_rng(SEED + 120),
+                                 world * DP_LOCAL_B)
+    out = {"backend": dist.get_backend(),
+           "device": f"cuda:{torch.cuda.current_device()}"}
+    task = dp_task(torch.float32, "cuda")
+    step = make_train_step(task, task.configure_optimizer(1), mesh=mesh)
+    out["f32"] = dp_step_record(task, step, images, target, rows)
+    out["f32"].update(model_state(task.model))
+    del task, step
+    out["faults"] = dp_faults(mesh, images, target, rows)
+    task = dp_task(torch.bfloat16, "cuda")
+    step = make_train_step(task, task.configure_optimizer(1), mesh=mesh)
+    out["bf16"] = [dp_step_record(task, step, images, target, rows)
+                   for _ in range(DP_STEPS)]
+    digest = hashlib.sha256()
+    for p in task.model.parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out["params_sha256"] = digest.hexdigest()
+    return out
+
+
+def nccl_rank():
+    """12(c): one f32 B4 step without a group and one through an NCCL group
+    of one (the all-reduce path), from the same weights: their losses."""
+    import torch.distributed as dist
+
+    from centernet_tpu_torch.parallel.mesh import make_mesh
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images, target = train_batch(np.random.default_rng(SEED + 121),
+                                 DP_LOCAL_B)
+    out = {"backend": dist.get_backend()}
+    for name, mesh in (("no group", None),
+                       ("nccl group of 1", make_mesh(device_type="cuda"))):
+        task = dp_task(torch.float32, "cuda")
+        step = make_train_step(task, task.configure_optimizer(1), mesh=mesh)
+        out[name] = {k: float(v) for k, v in step(images, target).items()}
+    return out
+
+
+def grad_errors(got, want, model):
+    """Phase 7's gradient rule between two gradient dicts: (worst per-tensor
+    error of the norm, its name, all together); DCN biases (true gradient
+    0) bounded apart."""
+    from centernet_tpu_torch.ops.dcn import DCN
+
+    dcn_biases = {f"{n}.bias" for n, m in model.named_modules()
+                  if isinstance(m, DCN)}
+    worst, num, den = (0.0, ""), 0.0, 0.0
+    for n, w in want.items():
+        g = got[n].astype(np.float64)
+        w = w.astype(np.float64)
+        if n in dcn_biases:
+            bound = 1e-4 * float(np.abs(want[n[:-len("bias")] + "weight"])
+                                 .max())
+            if max(np.abs(g).max(), np.abs(w).max()) > bound:
+                raise RuntimeError(f"{n}: gradient not ~0")
+            continue
+        if not w.any():
+            if g.any():
+                raise RuntimeError(f"{n}: gradient on one side only")
+            continue
+        d = float(np.linalg.norm(g - w))
+        err = d / float(np.linalg.norm(w))
+        worst = max(worst, (err, n))
+        num += d ** 2
+        den += float(np.linalg.norm(w)) ** 2
+    return worst[0], worst[1], (num / den) ** 0.5
+
+
+def run_export_and_dp(dev, card):
+    """Phase 12: the operators under opcheck, the serving export of dla_34
+    detection and pose in a fresh interpreter, and data parallelism: two
+    gloo ranks on the one card against one process, an NCCL group of one,
+    and the CLI's refusal of more ranks than cards."""
+    import tempfile
+
+    from centernet_tpu_torch.cli.detection import cli_main
+    from centernet_tpu_torch.parallel.mesh import launch
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    out = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_ops_on_card(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as workdir:
+        live = {kind: export_live(dev, kind, workdir)
+                for kind in ("detection", "multi_pose")}
+        torch.cuda.empty_cache()
+        got = serve_in_fresh_interpreter(live)
+        out["export"] = {kind: check_served(kind, live[kind], got[kind], card)
+                         for kind in live}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = launch(dp_rank, DP_RANKS, device_type="cuda", backend="gloo",
+                   local_ranks=[0] * DP_RANKS)
+    print(f"{DP_RANKS} gloo ranks on cuda:0 ({ranks[0]['backend']}; "
+          f"{DP_LABEL}) ran in {time.perf_counter() - t0:.1f} s")
+    # the same global batch in one process, B8
+    images, target = train_batch(np.random.default_rng(SEED + 120),
+                                 DP_RANKS * DP_LOCAL_B)
+    task = dp_task(torch.float32, dev)
+    step = make_train_step(task, task.configure_optimizer(1))
+    one = dp_step_record(task, step, images, target, slice(None))
+    one.update(model_state(task.model))
+    for r, res in enumerate(ranks):
+        f32 = res["f32"]
+        loss_err = max(abs(f32["stats"][k] / v - 1)
+                       for k, v in one["stats"].items())
+        worst, worst_at, total = grad_errors(f32["grads"], one["grads"],
+                                             task.model)
+        stat_err = max(float(np.abs(f32["running"][n] - w).max())
+                       / max(1.0, float(np.abs(w).max()))
+                       for n, w in one["running"].items())
+        print(f"rank {r} f32 (B{DP_LOCAL_B} of the global B"
+              f"{DP_RANKS * DP_LOCAL_B}) vs one process's B"
+              f"{DP_RANKS * DP_LOCAL_B}: loss and parts {loss_err:.3e} "
+              f"relative (tol {DP_LOSS_RTOL}); gradients worst {worst:.3e} "
+              f"of a norm ({worst_at}; tol {GRAD_TOL}), all {total:.3e} (tol "
+              f"{GRAD_TOL_ALL}); BN statistics {stat_err:.3e} (tol "
+              f"{DP_STATS_TOL})")
+        if (loss_err > DP_LOSS_RTOL or worst > GRAD_TOL
+                or total > GRAD_TOL_ALL or stat_err > DP_STATS_TOL):
+            raise RuntimeError(f"rank {r}'s data-parallel step disagrees "
+                               f"with one process")
+        out.setdefault("f32", []).append(
+            {"loss_err": loss_err, "grad_worst": worst, "grad_all": total,
+             "bn_err": stat_err})
+        for fault, f in res["faults"].items():
+            f_loss = max(abs(f["stats"][k] / v - 1)
+                         for k, v in one["stats"].items())
+            f_stat = max(float(np.abs(f["running"][n] - w).max())
+                         / max(1.0, float(np.abs(w).max()))
+                         for n, w in one["running"].items())
+            print(f"rank {r} with {fault} (negative control): loss and "
+                  f"parts {f_loss:.3e} relative, BN statistics "
+                  f"{f_stat:.3e}")
+            # the BatchNorm fault must show in both, the normalisers' in
+            # the loss (their statistics are the sound ones)
+            if f_loss <= DP_LOSS_RTOL or (
+                    "BatchNorm" in fault and f_stat <= DP_STATS_TOL):
+                raise RuntimeError(f"the limits do not tell {fault} from "
+                                   f"the global batch's")
+            out.setdefault("faults", {}).setdefault(fault, []).append(
+                {"loss_err": f_loss, "bn_err": f_stat})
+    del task, step
+    torch.cuda.empty_cache()
+    for r, res in enumerate(ranks):
+        for i, s in enumerate(res["bf16"]):
+            if s["launches"] != {"dcn_fwd": 16, "dcn_bwd": 16}:
+                raise RuntimeError(f"rank {r} bf16 step {i}: launches "
+                                   f"{s['launches']}")
+            if not all(np.isfinite(v) for v in s["stats"].values()):
+                raise RuntimeError(f"rank {r} bf16 step {i}: {s['stats']}")
+        if res["bf16"][-1]["stats"] != ranks[0]["bf16"][-1]["stats"]:
+            raise RuntimeError("the ranks report different losses")
+    digests = {res["params_sha256"] for res in ranks}
+    if len(digests) != 1:
+        raise RuntimeError("the ranks' parameters differ after the steps")
+    losses = [s["stats"]["loss"] for s in ranks[0]["bf16"]]
+    step_ms = [statistics.median(res["bf16"][i]["ms"] for res in ranks)
+               for i in range(DP_STEPS)]
+    # as the ranks counted them (every rank and step alike, checked above)
+    per_step = {k: max(s["launches"][k] for res in ranks
+                       for s in res["bf16"]) for k in ("dcn_fwd", "dcn_bwd")}
+    print(f"bf16, {DP_STEPS} steps of 2 x B{DP_LOCAL_B}: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; launches per rank per "
+          f"step {per_step}; parameters bitwise equal across the ranks "
+          f"(sha256 {digests.pop()[:16]})")
+    print(f"bf16 step times (host clock, the first with warm-up; {DP_LABEL}"
+          f"): {', '.join(f'{t:.1f}' for t in step_ms)} ms [{card}]")
+    out["bf16"] = {"losses": losses, "step_ms": step_ms,
+                   "launches_per_rank_step": per_step}
+
+    nccl = launch(nccl_rank, 1, device_type="cuda")[0]
+    a, b = nccl["no group"]["loss"], nccl["nccl group of 1"]["loss"]
+    err = abs(b / a - 1)
+    print(f"f32 B{DP_LOCAL_B} step: {nccl['backend']} group of 1, loss "
+          f"{b:.7f}, no group {a:.7f}: {err:.3e} relative (tol "
+          f"{NCCL_LOSS_RTOL})")
+    if err > NCCL_LOSS_RTOL:
+        raise RuntimeError("the NCCL group's step disagrees")
+    out["nccl_loss_err"] = err
+
+    try:
+        cli_main(["images", "annotations", "--num_devices", "2"])
+    except SystemExit as exc:
+        msg = str(exc)
+    else:
+        raise RuntimeError("cli.detection --num_devices 2 ran on one card")
+    if "--num_devices 2" not in msg:
+        raise RuntimeError(f"refused without naming the flag: {msg}")
+    print(f"cli.detection --num_devices 2 refused: {msg}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -2511,6 +3034,13 @@ def main() -> int:
     pose = run_pose_and_radius(dev, card, rng)
     pl = pose["cli"]["launches"]
     gates = pose["gates"]
+    torch.cuda.empty_cache()
+
+    phase("12 export and data parallelism: opcheck of both operators; the "
+          "dla_34 detection and pose serving programs (512x512, bf16, B4) "
+          "in a fresh interpreter; two gloo ranks on the one card against "
+          "one process; an NCCL group of one; the CLI's refusal")
+    dp = run_export_and_dp(dev, card)
 
     def summary(name, src, tpu, kernel_rows, launches_by_path, ms,
                 more_rows):
@@ -2556,7 +3086,14 @@ def main() -> int:
                 "pose_tta": pl["tta"][name],
                 **{f"gate_{g}": sum(run["launches"][name]
                                     for run in r["runs"])
-                   for g, r in gates.items()}}
+                   for g, r in gates.items()},
+                # phase 12: per call of each loaded serving program, per
+                # rank and step of the two-rank bf16 run
+                **{f"exported_{kind}_per_call":
+                   dp["export"][kind]["launches_per_call"][name]
+                   for kind in ("detection", "multi_pose")},
+                "data_parallel_per_rank_step":
+                    dp["bf16"]["launches_per_rank_step"][name]}
 
     kernels = [
         summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
@@ -2592,6 +3129,7 @@ def main() -> int:
     print(json.dumps({"other_backbones": other,
                       "other_clis": other_cli}))
     print(json.dumps({"pose_and_radius": pose}))
+    print(json.dumps({"export_and_data_parallel": dp}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
         bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
         print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "

@@ -113,10 +113,14 @@ def test_test_cli_rebuilds_the_task_from_the_sidecar(trained):
         cli_test(common + ["--batched", "--flip"])
 
 
+# spatial sharding (ROADMAP A11) is what the port still lacks; serving
+# export came with data parallelism and is tested in
+# tests/test_torch_port_export.py
 @pytest.mark.parametrize("task, extra, item", [
-    ("multi_pose", ["--export_serving", "x.pt"], "A11"),
+    ("multi_pose", ["--spatial", "2"], "A11"),
     ("detection", ["--spatial", "2", "--batched"], "A11"),
-    ("detection", ["--export_serving", "x.pt"], "A11"),
+    ("detection", ["--spatial", "4", "--batched", "--export_serving",
+                   "x.pt"], "A11"),
 ])
 def test_test_cli_refuses_what_the_port_lacks_by_name(trained, task, extra,
                                                       item):
@@ -126,8 +130,11 @@ def test_test_cli_refuses_what_the_port_lacks_by_name(trained, task, extra,
 
 
 def test_train_cli_refuses_several_devices(trained, tmp_path):
-    with pytest.raises(SystemExit, match="A10"):
-        cli_main(_train_args(trained["data"], tmp_path, "--num_devices", "2"))
+    """More ranks than the global batch splits into are refused by name
+    before any rank starts (more ranks than GPUs: tests/
+    test_torch_port_parallel_cli.py)."""
+    with pytest.raises(SystemExit, match="--num_devices 3"):
+        cli_main(_train_args(trained["data"], tmp_path, "--num_devices", "3"))
 
 
 def test_restore_makes_a_served_task_predict_like_a_fresh_one(tmp_path):

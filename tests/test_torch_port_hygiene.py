@@ -3,7 +3,9 @@
 * The port imports neither JAX nor the JAX package. The test suite's conftest
   imports JAX into this process, so the check runs in a fresh interpreter.
   The walk covers every module, the CLIs (``cli``), ``utils``, the data
-  loader and ``entry`` among them.
+  loader, ``entry``, ``parallel.mesh`` and ``utils.export`` among them; a
+  fresh interpreter that loads and runs a serving program with
+  ``load_serving`` alone holds neither either.
 * Entry points default to CUDA and raise without it instead of running on the
   CPU; the CPU is used only when the caller asks for it (``entry()`` and the
   CLIs included).
@@ -42,9 +44,9 @@ want = {"centernet_tpu_torch." + m for m in (
     "cli.common", "cli.detection", "cli.multi_pose", "cli.test",
     "data.coco", "data.loader", "data.transforms", "entry",
     "models.hourglass", "models.resnet", "models.resnet_dcn", "ops.nms",
-    "parallel.trainer", "tasks.multi_pose", "utils.checkpoint",
-    "utils.coco_eval", "utils.logging", "utils.profiling",
-    "utils.torch_import")}
+    "parallel.mesh", "parallel.trainer", "tasks.multi_pose",
+    "utils.checkpoint", "utils.coco_eval", "utils.export", "utils.logging",
+    "utils.profiling", "utils.torch_import")}
 assert want <= set(names), sorted(want - set(names))
 print(len(names), bad)
 """
@@ -59,6 +61,33 @@ def test_port_imports_no_jax_and_no_jax_package():
     n, bad = res.stdout.strip().split(" ", 1)
     assert int(n) >= 30, res.stdout  # every module of the slices imported
     assert bad == "[]", f"the port pulled in {bad}"
+
+
+_LOAD_SERVING = """
+import sys
+import torch
+from centernet_tpu_torch.utils.export import load_serving
+call = load_serving(sys.argv[1])
+call(torch.zeros(call.info["input_shape"]))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "centernet_tpu")))
+"""
+
+
+def test_load_serving_imports_no_jax_and_no_jax_package(tmp_path):
+    from centernet_tpu_torch.utils.export import export_serving
+
+    path = str(tmp_path / "serve.pt2")
+    export_serving(CenterNetDetection("resdcn_18", device="cpu"), path,
+                   input_size=64, batch=1)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run([sys.executable, "-c", _LOAD_SERVING, path],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", f"load_serving pulled in {res.stdout}"
 
 
 def test_task_defaults_to_cuda_and_never_falls_back_to_cpu():
