@@ -7,7 +7,8 @@ Data parallelism (``--num_devices``): under ``torchrun`` the world comes
 from the environment; otherwise ``--num_devices N`` > 1 starts N local
 ranks (``parallel.mesh.launch``), one per visible GPU with NCCL, or gloo
 ranks on the CPU with ``--device cpu``, each of which runs the CLI again as
-a rank of the data-parallel mesh (``rank_mesh``).
+a rank of the data-parallel mesh (``rank_mesh``). ``cli.test --spatial M``
+starts its M ranks the same way, on a ``(1, M)`` mesh.
 """
 
 from __future__ import annotations
@@ -167,18 +168,19 @@ def check_global_batch(args) -> None:
             f"--num_devices {world})")
 
 
-def spawn_ranks(args, entry: str, argv) -> Optional[list]:
-    """If ``--num_devices`` N > 1 and this process is not a rank already
-    (``torchrun`` or a launched one): run the CLI function ``entry``
-    ("module:function") on ``argv`` in N local ranks and return what each
-    returned; else None. N above the visible GPUs, or one that disagrees
-    with ``torchrun``'s world size, is refused."""
-    n = args.num_devices
+def spawn_ranks(args, entry: str, argv, n: Optional[int] = None,
+                flag: str = "--num_devices") -> Optional[list]:
+    """If the ranks wanted, ``n`` (default ``--num_devices``), are more than
+    one and this process is not a rank already (``torchrun`` or a launched
+    one): run the CLI function ``entry`` ("module:function") on ``argv`` in
+    n local ranks and return what each returned; else None. n above the
+    visible GPUs, or one that disagrees with ``torchrun``'s world size, is
+    refused, naming ``flag`` (the option that asked for them)."""
+    n = args.num_devices if n is None else n
     world = mesh_lib.torchrun_world()
     if world is not None:
         if n is not None and n != world:
-            raise SystemExit(f"--num_devices {n}: torchrun started {world} "
-                             f"ranks")
+            raise SystemExit(f"{flag} {n}: torchrun started {world} ranks")
         return None
     if dist.is_initialized() or n is None or n <= 1:
         return None
@@ -191,9 +193,9 @@ def spawn_ranks(args, entry: str, argv) -> Optional[list]:
         visible = torch.cuda.device_count()
         if n > visible:
             raise SystemExit(
-                f"--num_devices {n}: this host has {visible} visible GPU(s), "
-                f"and each rank needs one of its own (NCCL takes no two "
-                f"ranks on one GPU); --device cpu runs gloo ranks")
+                f"{flag} {n}: this host has {visible} visible GPU(s), and "
+                f"each rank needs one of its own (NCCL takes no two ranks on "
+                f"one GPU); --device cpu runs gloo ranks")
     return mesh_lib.launch(run_entry, n, entry, list(argv), device_type=kind)
 
 
@@ -205,9 +207,10 @@ def run_entry(entry: str, argv: List[str]):
     return result if isinstance(result, dict) else None
 
 
-def rank_mesh(args):
-    """The data-parallel mesh this process is a rank of (``torchrun``'s
-    environment or ``spawn_ranks``), or None for one process."""
+def rank_mesh(args, n_model: int = 1):
+    """The mesh this process is a rank of (``torchrun``'s environment or
+    ``spawn_ranks``), ``n_model`` ranks along its ``model`` axis and the
+    rest along ``data``, or None for one process."""
     if not mesh_lib.maybe_init_distributed(device_type(args)):
         return None
-    return mesh_lib.make_mesh(device_type=device_type(args))
+    return mesh_lib.make_mesh(n_model=n_model, device_type=device_type(args))

@@ -4,7 +4,8 @@ centernet_test.py cli_test, :20-84).
     python -m centernet_tpu_torch.cli.test {detection,multi_pose} IMAGES \\
         ANNOTATIONS --checkpoint runs/checkpoints/last --flip \\
         [--multi_scale] [--tta_bucket 0] [--batched --eval_batch_size 16] \\
-        [--device cpu] [--num_devices 2] [--export_serving serve.pt2]
+        [--device cpu] [--num_devices 2 | --batched --spatial 2] \\
+        [--export_serving serve.pt2]
 
 Restores a checkpoint (the task is rebuilt from its sidecar's hparams, so
 ``--arch`` and the DCN radii need not be repeated) or imports legacy
@@ -16,8 +17,12 @@ AP; pose reads ``person_keypoints_val2017.json`` and logs keypoint AP
 
 With ``--num_devices`` (or under ``torchrun``) each rank scores its strided
 share of the val ids and the COCO rows of all ranks are gathered before the
-AP. ``--export_serving PATH`` also writes the restored model's serving
-program (``utils/export.py``; the first rank alone writes it).
+AP. ``--batched --spatial M`` runs M ranks on a ``(1, M)`` mesh instead, as
+the JAX package does: every rank sees every image and forwards its band of
+each image's rows (``parallel/spatial.py``), one visible GPU per rank with
+NCCL or gloo ranks with ``--device cpu``. ``--export_serving PATH`` also
+writes the restored model's serving program (``utils/export.py``). The
+first global rank alone prints and writes files.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import os
 import sys
 
 from ..data.coco import CocoDetection
-from ..parallel.mesh import data_rank_and_size
+from ..parallel.mesh import data_rank_and_size, is_main_process
+from ..parallel.spatial import make_spatial_infer
 from ..parallel.trainer import Trainer
 from ..tasks import task_from_hparams
 from ..tasks.detection import CenterNetDetection
@@ -70,8 +76,10 @@ def cli_test(argv=None):
     parser.add_argument("--eval_batch_size", type=int, default=16)
     parser.add_argument(
         "--spatial", type=int, default=1, metavar="M",
-        help="shard each image's H axis over M devices (spatial sharding, "
-        "ROADMAP A11, is not ported yet: 1)")
+        help="with --batched: split each image's rows over M ranks (a (1, M) "
+        "mesh: one GPU each, or gloo ranks with --device cpu) and exchange "
+        "the halos between them; spatially sharded inference, which scales "
+        "one image's latency (parallel/spatial.py)")
     parser.add_argument("--precision", default="bf16", choices=list(DTYPES))
     parser.add_argument(
         "--export_serving", default=None, metavar="PATH",
@@ -85,18 +93,29 @@ def cli_test(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
-    if args.spatial > 1:
-        raise SystemExit(f"--spatial {args.spatial}: spatial sharding is "
-                         f"not ported yet (ROADMAP A11)")
     if args.batched and (args.flip or args.multi_scale):
         raise SystemExit(
             "--batched is the single-scale serving path; drop "
             "--flip/--multi_scale or use the TTA loop")
-    spawned = spawn_ranks(args, "centernet_tpu_torch.cli.test:cli_test", argv)
+    n_model = max(1, args.spatial)
+    ranks, flag = args.num_devices, "--num_devices"
+    if n_model > 1:
+        if not args.batched:
+            raise SystemExit("--spatial requires --batched (fixed shapes)")
+        if args.num_devices not in (None, n_model):
+            raise SystemExit(
+                f"--num_devices {args.num_devices} disagrees with --spatial "
+                f"{n_model}: a spatial eval runs {n_model} ranks on a "
+                f"(1, {n_model}) mesh, each over every image (there is no "
+                f"data x spatial eval mesh)")
+        ranks, flag = n_model, "--spatial"
+    spawned = spawn_ranks(args, "centernet_tpu_torch.cli.test:cli_test", argv,
+                          ranks, flag)
     if spawned is not None:
         return spawned[0]
-    mesh = rank_mesh(args)
+    mesh = rank_mesh(args, n_model)
     rank, world = data_rank_and_size(mesh)
+    main = is_main_process()
 
     tta = dict(test_scales=MULTI_SCALES if args.multi_scale else None,
                test_flip=args.flip, tta_bucket=args.tta_bucket,
@@ -106,7 +125,7 @@ def cli_test(argv=None):
     meta_hp = (load_checkpoint_hparams(args.checkpoint)
                if args.checkpoint else None)
     if meta_hp is not None:
-        if meta_hp.get("arch") != args.arch and rank == 0:
+        if meta_hp.get("arch") != args.arch and main:
             print(f"[cli_test] using arch {meta_hp.get('arch')!r} from "
                   f"checkpoint hparams (flag/default was {args.arch!r})")
         expected = TASKS[args.task].__name__
@@ -128,7 +147,7 @@ def cli_test(argv=None):
         load_legacy_centernet_weights(args.pretrained_weights_path, task)
     elif args.checkpoint:
         restore_checkpoint(args.checkpoint, trainer.state)
-    if args.export_serving and rank == 0:
+    if args.export_serving and main:
         from ..utils.export import export_serving
 
         export_serving(task, args.export_serving,
@@ -151,11 +170,12 @@ def cli_test(argv=None):
     # each rank decodes only its share of the ids
     images = eval_images(coco_val, rank, world)
     if args.batched:
-        stats = trainer.test_batched(images, evals,
-                                     batch_size=args.eval_batch_size)
+        stats = trainer.test_batched(
+            images, evals, batch_size=args.eval_batch_size,
+            infer_fn=make_spatial_infer(task, mesh) if n_model > 1 else None)
     else:
         stats = trainer.test(images, evals)
-    if rank == 0:
+    if main:
         print(stats)
     return stats
 

@@ -9,7 +9,10 @@
 * ``dryrun_multichip(n)``: one real data-parallel train step of resdcn_18 at
   64x64 over n ranks (one image each, rank i holding image i), so that the
   DCN kernels' forward and backward run under data parallelism: NCCL over
-  the visible GPUs, or gloo ranks with ``device="cpu"``.
+  the visible GPUs, or gloo ranks with ``device="cpu"``. With n even, the
+  trained weights then serve n/2 seeded images spatially sharded on a
+  ``(n/2, 2)`` mesh (``parallel/spatial.py``): batch over ``data``, rows
+  over ``model``, the DCN forward on halo slabs.
 
 Both build their tasks on CUDA and raise without it unless the CPU is
 asked for.
@@ -42,6 +45,7 @@ def _dryrun_rank(device_type: str) -> dict:
     import torch.distributed as dist
 
     from .parallel.mesh import make_mesh
+    from .parallel.spatial import make_spatial_infer
     from .parallel.trainer import make_train_step
     from .tasks.detection import CenterNetDetection
 
@@ -63,8 +67,16 @@ def _dryrun_rank(device_type: str) -> dict:
     stats = step(img, target)
     params = torch.cat([p.detach().reshape(-1).float()
                         for p in task.model.parameters()])
-    return {"loss": float(stats["loss"]),
-            "params_sum": float(params.double().sum())}
+    out = {"loss": float(stats["loss"]),
+           "params_sum": float(params.double().sum())}
+    world = dist.get_world_size()
+    if world % 2 == 0:
+        infer = make_spatial_infer(
+            task, make_mesh(world // 2, 2, device_type=device_type))
+        imgs = np.random.RandomState(0).rand(world // 2, size, size, 3)
+        dets = infer(torch.from_numpy(imgs.astype(np.float32)))
+        out["spatial"] = dets.cpu().tolist()
+    return out
 
 
 def dryrun_multichip(n_devices: Optional[int] = None,
@@ -72,7 +84,10 @@ def dryrun_multichip(n_devices: Optional[int] = None,
     """Run one global-batch train step of resdcn_18 over ``n_devices``
     ranks (default: every visible GPU; ``device="cpu"``: gloo ranks on the
     CPU) and check that every rank saw the same finite loss and took the
-    same update; returns the loss."""
+    same update; with ``n_devices`` even, also the spatially sharded
+    inference of ``n_devices / 2`` images on a ``(n/2, 2)`` mesh: rows
+    [n/2, 100, 6] with finite scores, the same on every rank. Returns the
+    loss."""
     from .parallel.mesh import launch
 
     kind = "cpu" if device == "cpu" else "cuda"
@@ -93,5 +108,14 @@ def dryrun_multichip(n_devices: Optional[int] = None,
         raise RuntimeError(f"non-finite loss {loss}")
     if any(r != ranks[0] for r in ranks):
         raise RuntimeError(f"the ranks disagree: {ranks}")
-    print(f"dryrun_multichip({n_devices}): OK, loss={loss:.4f}")
+    spatial = ""
+    if n_devices % 2 == 0:
+        dets = np.asarray(ranks[0]["spatial"])
+        if dets.shape != (n_devices // 2, 100, 6) or not np.isfinite(
+                dets[..., 4]).all():
+            raise RuntimeError(f"spatial inference gave {dets.shape}, "
+                               f"finite scores {np.isfinite(dets).all()}")
+        spatial = (f", spatial rows {list(dets.shape)} on a "
+                   f"({n_devices // 2}, 2) mesh")
+    print(f"dryrun_multichip({n_devices}): OK, loss={loss:.4f}{spatial}")
     return loss

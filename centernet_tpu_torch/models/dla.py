@@ -20,7 +20,7 @@ from torch import nn
 
 from ..ops.dcn import DeformConvBNAct
 from ..ops.modules import BatchNorm2d, Conv2d
-from .layers import BilinearConvTranspose, ConvBNAct
+from .layers import BilinearConvTranspose, ConvBNAct, max_pool2d
 
 
 class DlaBasicBlock(nn.Module):
@@ -105,7 +105,7 @@ class Tree(nn.Module):
 
     def forward(self, x, residual=None, children=None):
         children = [] if children is None else list(children)
-        bottom = (F.max_pool2d(x, self.stride, self.stride)
+        bottom = (max_pool2d(x, self.stride, self.stride)
                   if self.stride > 1 else x)
         proj = bottom
         if self.project is not None and (residual is None or self.training):
@@ -215,6 +215,7 @@ class DLASeg(nn.Module):
     64-channel map, in the compute dtype."""
 
     num_stacks = 1
+    deepest_stride = 32  # level5
 
     def __init__(self, down_ratio: int = 4, last_level: int = 5,
                  levels: Sequence[int] = (1, 1, 1, 2, 2, 1),

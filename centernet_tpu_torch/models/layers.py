@@ -3,7 +3,9 @@
 Tensors are NCHW in ``torch.channels_last`` memory. Convolutions hold f32
 parameters and compute in the model's dtype; BatchNorm keeps f32 parameters
 and statistics and returns the compute dtype (its affine math runs in f32),
-as the JAX ``ConvBNAct`` does (``ops/modules.py``).
+as the JAX ``ConvBNAct`` does (``ops/modules.py``). The transpose convs
+and ``max_pool2d`` exchange their halo rows under spatial sharding
+(``ops/halo.py``), as ``ops/modules.py::Conv2d`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +17,31 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.modules import BatchNorm2d, CastCache, Conv2d
+from ..ops import halo
+
+
+def conv_transpose(x: torch.Tensor, w: torch.Tensor,
+                   m: nn.ConvTranspose2d) -> torch.Tensor:
+    """``F.conv_transpose2d`` of ``x`` with ``w`` and ``m``'s geometry (no
+    bias); on this rank's slab under spatial sharding."""
+    if halo.current_axis() is None:
+        return F.conv_transpose2d(x, w, None, m.stride, m.padding,
+                                  m.output_padding, m.groups, m.dilation)
+    rows = halo.halo_rows("transpose", m.kernel_size[0], m.stride[0],
+                          m.padding[0])
+    return halo.on_slab(x, rows, 0.0, lambda e: F.conv_transpose2d(
+        e, w, None, m.stride, (0, m.padding[1]), m.output_padding, m.groups,
+        m.dilation))
+
+
+def max_pool2d(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
+    """``F.max_pool2d(x, k, s, p)``; on this rank's slab under spatial
+    sharding, the rows outside the image at -inf (the pool's own
+    padding)."""
+    if halo.current_axis() is None:
+        return F.max_pool2d(x, k, s, p)
+    return halo.on_slab(x, halo.halo_rows("pool", k, s, p), float("-inf"),
+                        lambda e: F.max_pool2d(e, k, s, (0, p)))
 
 
 class ConvBNAct(nn.Sequential):
@@ -58,10 +85,7 @@ class BilinearConvTranspose(CastCache, nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.param_as("weight", dt), None,
-                                  self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
+        return conv_transpose(x.to(dt), self.param_as("weight", dt), self)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -88,8 +112,7 @@ class ConvTranspose2x(CastCache, nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.param_as("weight", dt), None,
-                                  self.stride, self.padding)
+        return conv_transpose(x.to(dt), self.param_as("weight", dt), self)
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:

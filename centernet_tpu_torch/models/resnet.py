@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.modules import BatchNorm2d, Conv2d
-from .layers import ConvTransposeBNAct
+from .layers import ConvTransposeBNAct, max_pool2d
 
 
 def _downsample(in_channels: int, out_channels: int, stride: int,
@@ -93,6 +93,8 @@ class ResNetStages(nn.Module):
     residual stages to stride 32. Only a stage's first block may downsample
     its residual, and only where the stride or the width changes."""
 
+    deepest_stride = 32  # layer4
+
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -118,7 +120,7 @@ class ResNetStages(nn.Module):
     def trunk(self, x):
         """The stride-32 feature map."""
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        x = max_pool2d(x, 3, 2, 1)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             x = stage(x)
         return x

@@ -27,14 +27,19 @@ layout and call the operators ``centernet_tpu_torch::dcn_fwd`` / ``dcn_bwd``
 (``dcn_cuda``), which dispatch by device: a CPU tensor goes to the plain
 PyTorch version, a CUDA tensor to the hand-written kernel, which raises
 rather than falls back.
+
+Under spatial sharding (``ops/halo.py``) a ``DCN`` clamps at the radius of
+the whole map and runs the forward operator on its slab extended by
+radius + 1 rows of the neighbouring ranks.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from . import dcn_cuda
+from . import dcn_cuda, halo
 from .modules import BatchNorm2d, CastCache, Conv2d, recording
 
 CLIP_EPS = 1.0 / 64.0
@@ -257,24 +262,38 @@ class DCN(CastCache, nn.Module):
     def forward(self, x):
         x = x.to(self.dtype)
         h, w = x.shape[-2:]
-        r = dcn_radius(h, w, self.radius, self.radius_fine)
+        axis = halo.current_axis()
+        # under spatial sharding x is a slab: the radius is the whole map's
+        rows = h if axis is None else h * axis.size
+        r = dcn_radius(rows, w, self.radius, self.radius_fine)
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
         offsets = om[..., :2 * KK].float()
         mask = torch.sigmoid(om[..., 2 * KK:].float())
         lo, hi = -float(r), float(r) - CLIP_EPS
-        if recording(self):
+        if axis is None and recording(self):
             # straight-through clamp (JAX ops/dcn.py:1393-1402): the forward
             # sees the clamped value, the gradient reaches the raw offsets
             offsets = offsets + (offsets.clamp(lo, hi) - offsets).detach()
             y = DeformConv2dFunction.apply(
                 x.permute(0, 2, 3, 1), offsets, mask,
                 dcn_weight_matrix(self.weight), self.bias, r)
-        else:  # serving: the forward operator alone (torch.export traces it)
-            wmat = self.cached(
-                "weight", lambda t: dcn_weight_matrix(t).to(self.dtype))
-            y = deform_conv2d(x.permute(0, 2, 3, 1), offsets.clamp(lo, hi),
-                              mask, wmat, self.bias, r)
-        return y.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+            return y.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+        # serving: the forward operator alone (torch.export traces it). On a
+        # slab a sample of a row reaches at most r + 1 rows away, so the
+        # operator runs on the slab with r + 1 rows of x each side (zero
+        # outside the image, as the kernel reads there) and zero offsets and
+        # mask on those rows, whose outputs are dropped.
+        offsets = offsets.clamp(lo, hi)
+        e = 0 if axis is None else r + 1
+        if e:
+            x = halo.exchange_halo(x, e, e)
+            offsets, mask = (F.pad(t, (0, 0, 0, 0, e, e))
+                             for t in (offsets, mask))
+        wmat = self.cached(
+            "weight", lambda t: dcn_weight_matrix(t).to(self.dtype))
+        y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask, wmat,
+                          self.bias, r)
+        return halo.crop_rows(y.permute(0, 3, 1, 2), e, e)
 
 
 class DeformConvBNAct(nn.Module):

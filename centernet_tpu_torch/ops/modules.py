@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import halo
+
 
 def recording(module: nn.Module) -> bool:
     """Whether a forward of ``module`` may be differentiated."""
@@ -110,8 +112,15 @@ class Conv2d(CastCache, nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.param_as("weight", dt),
-                                  self.param_as("bias", dt))
+        x = x.to(dt)
+        w, b = self.param_as("weight", dt), self.param_as("bias", dt)
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        if halo.current_axis() is None or k == 1:
+            return self._conv_forward(x, w, b)
+        return halo.on_slab(
+            x, halo.halo_rows("conv", k, s, p), 0.0,
+            lambda e: F.conv2d(e, w, b, self.stride, (0, self.padding[1]),
+                               self.dilation, self.groups))
 
 
 class BatchNorm2d(nn.BatchNorm2d):

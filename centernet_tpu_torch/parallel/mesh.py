@@ -2,11 +2,12 @@
 ``centernet_tpu/parallel/mesh.py``.
 
 The JAX package runs one program over a ``jax.sharding.Mesh`` with a
-``data`` axis (and a ``model`` axis kept for spatial sharding), and XLA
-inserts the collectives. The port runs one process per device, each in a
+``data`` axis and a ``model`` axis (spatial sharding), and XLA inserts the
+collectives. The port runs one process per device, each in a
 ``torch.distributed`` process group, and writes its collectives by hand
 (``parallel/trainer.py``, ``ops/modules.py::global_statistics``,
-``ops/losses.py``). The mesh is a ``DeviceMesh`` with the same axis names.
+``ops/losses.py``, the halo exchange of ``parallel/spatial.py``). The mesh
+is a ``DeviceMesh`` with the same axis names.
 
 * ``maybe_init_distributed``: join the default process group, from explicit
   arguments or from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
@@ -14,8 +15,12 @@ inserts the collectives. The port runs one process per device, each in a
   for the CPU unless the caller names a backend. Rank r works on
   ``cuda:LOCAL_RANK``; a CUDA rank without its card raises, it never falls
   back to the CPU.
-* ``make_mesh``: the ``("data", "model")`` ``DeviceMesh`` over the group;
-  the ``model`` axis is 1 until spatial sharding comes (ROADMAP A11).
+* ``make_mesh``: the ``("data", "model")`` ``DeviceMesh`` over the group,
+  ranks row-major: rank ``d * n_model + m`` is data index d, model index m.
+  ``data_group`` / ``model_group`` and ``data_rank_and_size`` /
+  ``model_rank_and_size`` read its axes; ``is_main_process`` says whether
+  this process prints, logs and writes files (the first global rank: on a
+  ``(1, M)`` mesh every rank has data index 0).
 * ``launch``: run a function in N fresh local processes, one per rank, and
   return what each returned (the CLIs' ``--num_devices``, ``entry.
   dryrun_multichip`` and the tests use it). The ranks meet through a file
@@ -90,17 +95,15 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device_type: str = "cuda"):
     """The ``("data", "model")`` ``DeviceMesh`` over the default process
     group (joined from ``torchrun``'s environment if need be): ranks
-    row-major, ``n_data`` defaulting to world size // ``n_model``. Spatial
-    sharding over ``model`` is not ported yet, so ``n_model`` must be 1."""
+    row-major (the ``model`` axis varies fastest), ``n_data`` defaulting to
+    world size // ``n_model``. ``n_model`` > 1 shards image rows for
+    ``parallel/spatial.py``."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not maybe_init_distributed(device_type):
         raise RuntimeError(
             "make_mesh needs a process group: launch under torchrun, or "
             "call maybe_init_distributed (or launch) first")
-    if n_model != 1:
-        raise ValueError(f"n_model={n_model}: spatial sharding over the "
-                         f"'model' axis is not ported yet (ROADMAP A11)")
     world = dist.get_world_size()
     n_data = world // n_model if n_data is None else n_data
     if n_data * n_model != world:
@@ -115,13 +118,33 @@ def data_group(mesh):
     return None if mesh is None else mesh.get_group("data")
 
 
-def data_rank_and_size(mesh) -> tuple:
-    """(this rank's index on ``mesh``'s data axis, the axis's size); (0, 1)
-    without a mesh."""
-    group = data_group(mesh)
+def model_group(mesh):
+    """The process group of ``mesh``'s model axis, or None without a mesh."""
+    return None if mesh is None else mesh.get_group("model")
+
+
+def _rank_and_size(group) -> tuple:
     if group is None:
         return 0, 1
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def data_rank_and_size(mesh) -> tuple:
+    """(this rank's index on ``mesh``'s data axis, the axis's size); (0, 1)
+    without a mesh."""
+    return _rank_and_size(data_group(mesh))
+
+
+def model_rank_and_size(mesh) -> tuple:
+    """(this rank's index on ``mesh``'s model axis, the axis's size); (0, 1)
+    without a mesh."""
+    return _rank_and_size(model_group(mesh))
+
+
+def is_main_process() -> bool:
+    """Whether this process prints, logs and writes files: the first global
+    rank of the default group, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _rank_main(rank: int, world_size: int, fn: Callable, args: tuple,

@@ -1,0 +1,103 @@
+"""Spatially sharded inference, PyTorch port of
+``centernet_tpu/parallel/spatial.py``: one image's forward over several
+devices, its rows split among the ranks of a mesh's ``model`` axis, the
+latency axis that data parallelism cannot reach.
+
+The JAX package shards the image's H axis with a ``NamedSharding`` and
+XLA inserts every halo exchange. The port runs one process per rank, so
+the exchange is explicit: each rank runs the model on its slab of the rows
+under ``ops/halo.py::sharded_rows``, and every op that reads neighbouring
+rows takes them from the other ranks of the model axis (``ops/halo.py``
+says which ops and how). A slab is exact when its first row is a multiple
+of every stride on the way down, so H must divide by the model axis times
+the arch's deepest stride (the backbone's ``deepest_stride``); the JAX
+package also takes uneven internal shards, which GSPMD pads.
+
+``make_spatial_infer`` runs the forward on each rank's slab of its data
+share, gathers the last stack's head maps over the model axis
+(``ops/halo.py::gather_rows``) and decodes them with the task's own
+``decode_heads``, so the NMS and the top-K are the single-device code.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..ops.halo import SpatialAxis, all_gather, gather_rows, sharded_rows
+from .mesh import data_group, data_rank_and_size, model_group, \
+    model_rank_and_size
+
+__all__ = ["make_spatial_heads", "make_spatial_infer", "spatial_image_rows"]
+
+
+def spatial_image_rows(images, mesh):
+    """This rank's rows of a global NHWC batch: its data-axis share of the
+    batch and its model-axis slab of H (the port's
+    ``spatial_image_sharding``)."""
+    d, n_data = data_rank_and_size(mesh)
+    m, n_model = model_rank_and_size(mesh)
+    b, h = images.shape[0] // n_data, images.shape[1] // n_model
+    return images[d * b:(d + 1) * b, m * h:(m + 1) * h]
+
+
+def make_spatial_heads(task, mesh) -> Callable:
+    """The task's forward with the batch split over ``mesh``'s ``data`` axis
+    and the image H axis over its ``model`` axis: ``fn(images)`` takes the
+    global NHWC batch (uint8, or float already normalised) on every rank and
+    returns this data rank's share of it as the last stack's NHWC f32 head
+    maps of the whole image (every slab's, gathered over the model axis).
+    The batch must divide by the data axis and H by the model axis times
+    the arch's deepest stride."""
+    n_data = data_rank_and_size(mesh)[1]
+    m, n_model = model_rank_and_size(mesh)
+    axis = SpatialAxis(model_group(mesh), n_model, m)
+    stride = task.model.backbone.deepest_stride
+
+    def fn(images):
+        b, h = images.shape[0], images.shape[1]
+        if b % n_data:
+            raise ValueError(f"batch {b} not divisible by data axis {n_data}")
+        if h % (n_model * stride):
+            raise ValueError(
+                f"image H {h} must be divisible by the model axis "
+                f"({n_model}) times the arch's deepest stride ({stride}) for "
+                f"spatial sharding")
+        with torch.inference_mode():
+            x = task.prep_images(spatial_image_rows(images, mesh))
+            x = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            with sharded_rows(axis):
+                return {k: gather_rows(v).permute(0, 2, 3, 1)
+                        for k, v in task.model(x)[-1].items()}
+
+    return fn
+
+
+def make_spatial_infer(task, mesh, flip: bool = False) -> Callable:
+    """The task's forward + decode with the batch split over ``mesh``'s
+    ``data`` axis and the image H axis over its ``model`` axis
+    (``make_spatial_heads``).
+
+    Returns ``fn(images) -> [B, K, D]``: ``images`` is the global NHWC batch
+    on every rank, and every rank returns the whole batch's rows, equal to
+    the task's ``infer_decode``. ``flip`` is ``infer_decode``'s flip TTA:
+    images are [image, mirrored image], and with a data axis of 2 the pair's
+    maps meet on every rank before the merge."""
+    heads = make_spatial_heads(task, mesh)
+    n_data = data_rank_and_size(mesh)[1]
+    group = data_group(mesh)
+
+    def fn(images):
+        out = heads(images)
+        with torch.inference_mode():
+            if flip and n_data > 1:
+                out = {k: torch.cat(all_gather(v, group))
+                       for k, v in out.items()}
+                return task.decode_heads(out, None, flip)
+            dets = task.decode_heads(out, None, flip)
+            return torch.cat(all_gather(dets, group)) if n_data > 1 \
+                else dets
+
+    return fn

@@ -39,7 +39,7 @@ import torch.distributed as dist
 from ..ops.modules import global_statistics
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
-from .mesh import data_group, data_rank_and_size
+from .mesh import data_group, data_rank_and_size, is_main_process
 
 
 def _all_reduced_stats(stats: Dict[str, torch.Tensor], group
@@ -263,7 +263,7 @@ class Trainer:
         self.max_epochs = max_epochs
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
-        self.logger = MetricsLogger(log_dir if self.rank == 0 else None)
+        self.logger = MetricsLogger(log_dir if is_main_process() else None)
         self.checkpoint = checkpoint
         self.log_every_n_steps = max(1, log_every_n_steps)
         self.steps_per_epoch = max(1, steps_per_epoch_hint)
@@ -345,7 +345,7 @@ class Trainer:
             metrics["learning_rate"] = self._current_lr()
             self.logger.log_epoch(epoch, metrics)
 
-            if self.checkpoint is not None and self.rank == 0:
+            if self.checkpoint is not None and is_main_process():
                 self.checkpoint.on_epoch_end(
                     epoch, metrics,
                     lambda path: save_checkpoint(
@@ -363,20 +363,23 @@ class Trainer:
     # -- eval / test -----------------------------------------------------------
 
     def test_batched(self, dataset, coco_eval=None, prefix: str = "",
-                     batch_size: int = 16, input_size: int = 512
-                     ) -> Dict[str, float]:
+                     batch_size: int = 16, input_size: int = 512,
+                     infer_fn=None) -> Dict[str, float]:
         """Batched single-scale evaluation over (img_hwc, image_id) pairs,
         this rank's share of the dataset (``cli/detection.py::eval_images``
         strides the ids): every image resized and padded to ``input_size``
         square (``prepare_image_fixed``), one device round trip per
-        ``batch_size`` images."""
+        ``batch_size`` images. ``infer_fn`` replaces the forward + decode
+        (``task.predict_batch``), e.g. the spatially sharded one of
+        ``parallel.spatial.make_spatial_infer``."""
         results = []
         buf_imgs, buf_metas, buf_ids = [], [], []
 
         def flush():
             if not buf_imgs:
                 return
-            dets = self.task.predict_batch(torch.stack(buf_imgs), buf_metas)
+            dets = self.task.predict_batch(torch.stack(buf_imgs), buf_metas,
+                                           infer_fn)
             results.extend(zip(buf_ids, dets))
             buf_imgs.clear()
             buf_metas.clear()

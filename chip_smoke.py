@@ -104,7 +104,26 @@ raises and the script exits non-zero without printing a result:
    parameters bitwise equal across the ranks; their times are labelled as
    two ranks sharing one card, not a scaling number); an NCCL group of one
    through the all-reduce path against no group (f32 loss within 1e-6);
-   ``cli.detection --num_devices 2`` refused by name on the one card.
+   ``cli.detection --num_devices 2`` refused by name on the one card;
+13. spatial sharding: ``parallel.spatial.make_spatial_infer`` in gloo ranks
+   sharing the one card (``(1, 2)`` mesh: dla_34 detection and pose in bf16
+   and in f32 with TF32 off, resdcn_18 and the hourglass in bf16; ``(1, 4)``:
+   dla_34 and res_18 detection in bf16; 512x512, B4). dla_34 detection in
+   f32 and res_18 serve weights trained (200 and 800 steps) on images of
+   bright rectangles, some straddling the slabs' seams, so
+   that their heat maps hold distinct peaks; the others phase 4's seeded
+   weights on noise.
+   Each rank's rows against its own single-device ``infer_decode`` as sets
+   and the last stack's heads of ``make_spatial_heads`` against ``apply``'s
+   (bf16 at phase 4's tolerances, f32 at the SPATIAL_F32_* bounds);
+   16 ``dcn_fwd`` launches per rank per dla_34 forward (3 for resdcn_18) and
+   no ``dcn_bwd``, the DCN layers on halo slabs; the kernel against its
+   plain version at every slab shape met (bf16 and f32, phase 3's
+   tolerances; times and bounds); the trained runs (dla_34 f32 on (1, 2),
+   res_18 bf16 on (1, 4)) with every halo row zero must miss the limits on
+   the rows and on the heads; the spatial forward's host time, labelled as ranks sharing one
+   card (not a latency number); ``cli.test --batched --spatial 2`` refused
+   by name on the one card.
 
 Every kernel time printed by launched kernel name is checked against the
 CUDA-event time of the same call and dropped when they disagree (the
@@ -2830,6 +2849,430 @@ def run_export_and_dp(dev, card):
     return out
 
 
+# --------------------------------------------------------------- phase 13 ---
+# Spatially sharded inference (parallel/spatial.py): gloo ranks sharing the
+# one card, each forwarding its band of every image's rows.
+
+SPATIAL_LABEL = "{} gloo ranks sharing one card: not a latency number"
+SPATIAL_B = 4
+# (arch, task kind, dtype, inputs) on a (1, 2) mesh: dla_34 detection and
+# pose in bf16 and in f32, then the other families in bf16; dla_34 and
+# res_18 detection on (1, 4), where dla_34's 16x16 map puts a DCN halo of 5
+# rows against slabs of 4. "peaks": weights trained by ``train_peaks`` on
+# the images of ``peak_images``, whose heat maps hold a distinct peak per
+# rectangle, so a decoded row that moves has no tie to hide behind;
+# "noise": phase 4's seeded weights on noise images, where bf16 scores fall
+# on plateaus of ties that ``row_errors`` excuses, so there the heads carry
+# the check. dla_34 in bf16 stays on noise: its training is a new draw every
+# run (the DCN backward's atomics), and on its trained peaks the bf16
+# roundings of a band and of the whole image moved matched scores by
+# 3.4e-3 to 9.1e-3 over six runs, too near SCORE_TOL for a check that must
+# pass every run; f32 holds them to 2e-6, res_18 (trained the same every
+# run) to 7.2e-3.
+SPATIAL_CASES_2 = [
+    ("dla_34", "detection", torch.bfloat16, "noise"),
+    ("dla_34", "detection", torch.float32, "peaks"),
+    ("dla_34", "multi_pose", torch.bfloat16, "noise"),
+    ("dla_34", "multi_pose", torch.float32, "noise"),
+    ("resdcn_18", "detection", torch.bfloat16, "noise"),
+    ("hourglass", "detection", torch.bfloat16, "noise"),
+]
+SPATIAL_CASES_4 = [("dla_34", "detection", torch.bfloat16, "noise"),
+                   ("res_18", "detection", torch.bfloat16, "peaks")]
+# the cases that also run with every halo row zero: each must miss the
+# limits on the rows and on the heads
+SPATIAL_CONTROLS = {SPATIAL_CASES_2[1], SPATIAL_CASES_4[1]}
+# ``peak_images``: PEAK_BOXES bright rectangles per image, 12-27 pixels a
+# side (3-7 cells at stride 4: a bf16 width of under 8 cells rounds by at
+# most 1/64 of a cell, far inside BOX_TOL), the first three straddling the
+# rows where the slabs of a (1, 2) and a (1, 4) mesh meet. ``train_peaks``
+# takes PEAK_STEPS Adam steps at PEAK_LR on them. res_18's training is the
+# same every run: after 800 steps its ``hm_loss`` reads 0.0226 and its rows
+# the same numbers call after call. dla_34's is a new draw every run (the
+# DCN backward's atomics): after 200 steps ``hm_loss`` read 0.022 to 0.71
+# over six runs, and one run of 1000 steps never settled; it serves only
+# the f32 comparison, which every draw tried held to 2e-5 cells, and the
+# control, which every draw failed by 68 rows or more.
+PEAK_BOXES = 12
+PEAK_SIDE = (12, 28)
+PEAK_LR = 5e-4
+PEAK_STEPS = {"dla_34": 200, "res_18": 800}
+PEAK_CHECK = 50
+PEAK_SCORE = 0.1
+# f32 with TF32 off, slabs against the whole image on the same card: the
+# convs' sums run in other orders on other shapes (cuDNN picks its
+# algorithm by shape), so heads and rows agree to f32 rounding carried
+# through the layers, far inside bf16's phase 4 tolerances.
+SPATIAL_F32_BOX_TOL = 1e-3
+SPATIAL_F32_SCORE_TOL = 1e-4
+SPATIAL_F32_HEADS_TOL = 1e-4
+# A decoded row with no partner is excused when a row of another box scores
+# this close to it: seeded weights on noise images leave plateaus of
+# near-equal scores (a border row, a column) where f32 rounding lets the
+# NMS or the top-K cut keep other cells.
+SPATIAL_TIE = 1e-4
+SPATIAL_TIMED = 5
+SPATIAL_LAYERS = {"dla_34": 16, "resdcn_18": 3, "res_18": 0, "hourglass": 0}
+
+
+def zero_halo(x, top, bottom, fill=0.0):
+    """The negative control's exchange: every halo row is ``fill``, each slab
+    forwarded as an image of its own."""
+    n, c, _, w = x.shape
+    return torch.cat([x.new_full((n, c, top, w), fill), x,
+                      x.new_full((n, c, bottom, w), fill)], 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def peak_images():
+    """SPATIAL_B images (uint8, HW x HW) of PEAK_BOXES bright rectangles on
+    dark noise, 8 pixels apart, the first three straddling rows HW/4, HW/2
+    and 3 HW/4; and their padded annotations (COCO xywh, class 0)."""
+    rng = np.random.default_rng(SEED + 131)
+    imgs = rng.integers(0, 39, (SPATIAL_B, HW, HW, 3), dtype=np.uint8)
+    boxes = np.zeros((SPATIAL_B, 128, 4), np.float32)
+    valid = np.zeros((SPATIAL_B, 128), bool)
+    cuts = [HW // 4, HW // 2, 3 * HW // 4]
+    for i in range(SPATIAL_B):
+        k = 0
+        while k < PEAK_BOXES:
+            w, h = (int(v) for v in rng.integers(*PEAK_SIDE, 2))
+            x = int(rng.integers(2, HW - w - 2))
+            y = (cuts[k] - int(rng.integers(h // 4, 3 * h // 4) + 1)
+                 if k < len(cuts) else int(rng.integers(2, HW - h - 2)))
+            if any(x < bx + bw + 8 and bx < x + w + 8 and y < by + bh + 8
+                   and by < y + h + 8 for bx, by, bw, bh in boxes[i, :k]):
+                continue
+            imgs[i, y:y + h, x:x + w] = rng.integers(217, 243, (h, w, 3),
+                                                     dtype=np.uint8)
+            boxes[i, k] = x, y, w, h
+            valid[i, k] = True
+            k += 1
+    return imgs, {"boxes": boxes, "valid": valid,
+                  "classes": np.zeros((SPATIAL_B, 128), np.int32)}
+
+
+def train_peaks(arch, dev, path, card):
+    """The weights of the "peaks" cases: ``arch``'s bf16 detection task from
+    its own init after PEAK_STEPS[arch] steps on the batch of
+    ``peak_images`` that the ranks then serve, saved to ``path``."""
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    images, target = peak_images()
+    task = CenterNetDetection(arch, dtype=torch.bfloat16, device=dev,
+                              seed=SEED, learning_rate=PEAK_LR)
+    step = make_train_step(task, task.configure_optimizer(1))
+    imgs = torch.from_numpy(images).to(dev)
+    tgt = {k: torch.from_numpy(v).to(dev) for k, v in target.items()}
+    t0 = time.perf_counter()
+    trajectory = []
+    for s in range(PEAK_STEPS[arch]):
+        stats = step(imgs, tgt)
+        if (s + 1) % PEAK_CHECK == 0:
+            trajectory.append(round(float(stats["hm_loss"]), 4))
+    secs = time.perf_counter() - t0
+    rows = task.infer_decode(imgs).float().cpu().numpy()
+    peaks = (rows[..., 4] >= PEAK_SCORE).sum(1)
+    print(f"{arch} trained on the peak images: {PEAK_STEPS[arch]} steps in "
+          f"{secs:.1f} s [{card}]; hm_loss every {PEAK_CHECK} steps "
+          f"{trajectory}; rows scoring >= {PEAK_SCORE} per image "
+          f"{peaks.tolist()} ({PEAK_BOXES} rectangles each)", flush=True)
+    if not np.isfinite(trajectory).all() or not np.isfinite(rows).all():
+        raise RuntimeError(f"{arch}: non-finite training on the peak images: "
+                           f"hm_loss {trajectory}")
+    torch.save(task.model.state_dict(), path)
+    return {"steps": PEAK_STEPS[arch], "seconds": secs, "hm_loss": trajectory,
+            "peak_rows": peaks.tolist()}
+
+
+def spatial_task(arch, kind, dtype, dev, weights=None):
+    """The case's task: phase 4's seeded weights, or the state dict saved at
+    ``weights``."""
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+    from centernet_tpu_torch.tasks.multi_pose import CenterNetMultiPose
+
+    cls = CenterNetDetection if kind == "detection" else CenterNetMultiPose
+    task = cls(arch, dtype=dtype, device=dev, seed=SEED)
+    if weights is None:
+        seed_weights(task.model, SEED + 1)
+    else:
+        task.model.load_state_dict(torch.load(weights, map_location=dev))
+    return task
+
+
+def spatial_rank(n_model, cases, weights):
+    """13, in each rank of a ``(1, n_model)`` mesh of gloo ranks on cuda:0:
+    per case, the rows of ``make_spatial_infer`` (the counted run, both DCN
+    kernels' launches and the shapes ``dcn_fwd`` was called at), the
+    single-device ``infer_decode`` rows of the same task, the error of the
+    last stack's heads (``make_spatial_heads`` against ``apply``), the
+    zero-halo control's rows and heads (SPATIAL_CONTROLS) and the host time
+    of the spatial forward. ``weights`` maps an arch to its "peaks" state
+    dict."""
+    from centernet_tpu_torch.ops import dcn_cuda, halo
+    from centernet_tpu_torch.parallel import spatial
+    from centernet_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = f"cuda:{torch.cuda.current_device()}"
+    mesh = make_mesh(1, n_model, device_type="cuda")
+    inputs = {"noise": np.random.default_rng(SEED + 130).integers(
+        0, 256, (SPATIAL_B, HW, HW, 3), dtype=np.uint8),
+        "peaks": peak_images()[0]}
+    launch = dcn_cuda.deform_conv2d_cuda
+    out = []
+    for case in cases:
+        arch, kind, dtype, source = case
+        task = spatial_task(arch, kind, dtype, dev,
+                            weights[arch] if source == "peaks" else None)
+        images = inputs[source]
+        infer = spatial.make_spatial_infer(task, mesh)
+        infer(images)  # cuDNN's first calls at the slab shapes
+        shapes = collections.Counter()
+
+        def recorded(x, offsets, mask, weight, bias, radius=4):
+            shapes[(*x.shape, weight.shape[1], radius,
+                    str(x.dtype)[6:])] += 1
+            return launch(x, offsets, mask, weight, bias, radius)
+
+        dcn_cuda.deform_conv2d_cuda = recorded
+        dcn_cuda.launch_counts.clear()
+        try:
+            rows = infer(images)
+            torch.cuda.synchronize()
+            launches = {k: dcn_cuda.launch_counts[k]
+                        for k in ("dcn_fwd", "dcn_bwd")}
+        finally:
+            dcn_cuda.deform_conv2d_cuda = launch
+        heads = spatial.make_spatial_heads(task, mesh)
+        one_heads = task.apply(images)[-1]
+        res = {"case": (arch, kind, str(dtype)[6:], source),
+               "launches": launches, "shapes": dict(shapes),
+               "rows": rows.float().cpu().numpy(),
+               "one": task.infer_decode(images).float().cpu().numpy(),
+               "heads_err": heads_error(heads(images), one_heads)}
+        if case in SPATIAL_CONTROLS:
+            exchange, halo.exchange_halo = halo.exchange_halo, zero_halo
+            try:
+                res["control"] = infer(images).float().cpu().numpy()
+                res["control_heads_err"] = heads_error(heads(images),
+                                                       one_heads)
+            finally:
+                halo.exchange_halo = exchange
+        times = []
+        for _ in range(SPATIAL_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infer(images)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        res["ms"] = statistics.median(times)
+        out.append(res)
+        del task, infer, heads, one_heads
+        torch.cuda.empty_cache()
+    return out
+
+
+def heads_error(got, want):
+    """The largest |got - want| of the head maps, each over max(1, max
+    |want|) of its own."""
+    return max(float((got[k] - want[k]).abs().max())
+               / max(1.0, float(want[k].abs().max())) for k in want)
+
+
+def row_errors(got, want, box_tol, score_tol):
+    """Rows as sets, per image, both ways: each row needs a row of its class
+    on the other side within ``box_tol`` on the box (and joints) and
+    ``score_tol`` on the scores (person and joints). A row without one is
+    excused at the other side's top-K cut (within ``score_tol`` of its
+    K-th score: rows there may trade places) and where a row of another
+    box (on either side) scores within SPATIAL_TIE of it: there
+    neighbouring cells or a plateau nearly tie, and the NMS may keep the
+    other one (as phase 4 notes). Returns the worst box and score errors of
+    the matched rows and the numbers of rows matched, excused and
+    unmatched."""
+    pose = got.shape[2] > 6
+    cls = 39 if pose else 5
+    score_cols = [4] + (list(range(40, got.shape[2])) if pose else [])
+    box_cols = list(range(4)) + (list(range(5, 39)) if pose else [])
+    box_err = score_err = 0.0
+    counts = {"matched": 0, "excused": 0, "unmatched": 0}
+    for a, b in ((got, want), (want, got)):
+        for ga, wb in zip(a, b):
+            both = np.concatenate([ga, wb])
+            for row in wb:
+                box = np.abs(ga[:, box_cols] - row[box_cols]).max(1)
+                score = np.abs(ga[:, score_cols] - row[score_cols]).max(1)
+                ok = ((ga[:, cls] == row[cls]) & (box <= box_tol)
+                      & (score <= score_tol))
+                if ok.any():
+                    counts["matched"] += 1
+                    j = np.flatnonzero(ok)[np.argmin(box[ok])]
+                    box_err = max(box_err, float(box[j]))
+                    score_err = max(score_err, float(score[j]))
+                    continue
+                other = (np.abs(both[:, box_cols] - row[box_cols]).max(1)
+                         > box_tol)
+                excused = (row[4] <= ga[:, 4].min() + score_tol or (
+                    np.abs(both[other, 4] - row[4]) <= SPATIAL_TIE).any())
+                counts["excused" if excused else "unmatched"] += 1
+    return box_err, score_err, counts
+
+
+def check_kernel_at_slabs(shapes, dev):
+    """The forward kernel against its plain version at every shape it met on
+    the halo slabs ((B, H, W, Ci, Co, radius, dtype) with the whole map's
+    radius), in bf16 and f32, at phase 3's tolerances; its time there (cold
+    L2, with the lead), the plain version's and the bound."""
+    from centernet_tpu_torch.ops.dcn import deform_conv2d_reference
+    from centernet_tpu_torch.ops.dcn_cuda import deform_conv2d_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for b, h, w, ci, co, r in sorted({s[:6] for s in shapes}):
+        for dtype in (torch.bfloat16, torch.float32):
+            args = dcn_inputs(b, (h, w), ci, co, dtype, gen, dev, radius=r)
+            got = deform_conv2d_cuda(*args)
+            want = deform_conv2d_reference(*args[:5])
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"non-finite kernel output at slab "
+                                   f"{h}x{w} C{ci}->{co} {dtype}")
+            err = float((got - want).abs().max())
+            rel = err / max(1.0, float(want.abs().max()))
+            ms = cuda_ms(lambda: deform_conv2d_cuda(*args), 10,
+                         l2_flush.zero_, LEAD_CYCLES)
+            plain_ms = cuda_ms(lambda: deform_conv2d_reference(*args[:5]), 3,
+                               l2_flush.zero_)
+            bound, by, _ = dcn_bound_ms(b, (h, w), ci, co, dtype)
+            met = sum(n for s, n in shapes.items()
+                      if s[:6] == (b, h, w, ci, co, r)
+                      and s[6] == str(dtype)[6:])
+            rows.append({"shape": f"B{b} {h}x{w} C{ci}->{co}", "radius": r,
+                         "dtype": str(dtype)[6:], "calls_per_rank": met,
+                         "max_abs_err": err, "max_rel_err": rel,
+                         "tol": KERNEL_TOL[dtype], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by})
+            print(f"slab B{b} {h:>3}x{w:<3} C{ci}->{co} r{r} "
+                  f"{str(dtype)[6:]:>8} (calls per rank {met}): abs err "
+                  f"{err:.3e} rel {rel:.3e} (tol {KERNEL_TOL[dtype]:.0e}); "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{1e3 * bound:.2f} us ({by})", flush=True)
+            if rel > KERNEL_TOL[dtype]:
+                raise RuntimeError(f"the kernel disagrees with the plain "
+                                   f"version at slab {h}x{w} C{ci}->{co} "
+                                   f"{dtype}: {rel:.3e}")
+            del args, got, want
+    del l2_flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_spatial(dev, card):
+    """Phase 13: ``make_spatial_infer`` in gloo ranks sharing the card (dla_34
+    detection and pose bf16 and f32, resdcn_18 and hourglass bf16 on a
+    (1, 2) mesh; dla_34 and res_18 detection bf16 on (1, 4); dla_34 f32
+    and res_18 on weights trained to distinct peaks) against each
+    rank's single-device ``infer_decode``; the DCN kernel's launches on the
+    slabs and the kernel against its plain version at every slab shape; the
+    zero-halo control; the CLI's refusal of more ranks than cards."""
+    import os
+    import tempfile
+
+    from centernet_tpu_torch.cli.test import cli_test
+    from centernet_tpu_torch.parallel.mesh import launch
+
+    out = {"cases": {}, "shapes": collections.Counter(), "control": {}}
+    results = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_peaks_") as root:
+        weights = {}
+        for arch in sorted({c[0] for c in SPATIAL_CASES_2 + SPATIAL_CASES_4
+                            if c[3] == "peaks"}):
+            weights[arch] = os.path.join(root, f"{arch}.pt")
+            out[f"{arch}_peak_training"] = train_peaks(arch, dev,
+                                                       weights[arch], card)
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for n_model, cases in ((2, SPATIAL_CASES_2), (4, SPATIAL_CASES_4)):
+            ranks = launch(spatial_rank, n_model, n_model, cases, weights,
+                           device_type="cuda", backend="gloo",
+                           local_ranks=[0] * n_model)
+            results += [(n_model, r, case) for r, res in enumerate(ranks)
+                        for case in res]
+    print(f"ranks ran in {time.perf_counter() - t0:.1f} s")
+    for n_model, rank, res in results:
+        arch, kind, dtype, source = res["case"]
+        name = f"{arch} {kind} {dtype} 1x{n_model}"
+        f32 = dtype == "float32"
+        box_tol = SPATIAL_F32_BOX_TOL if f32 else BOX_TOL
+        score_tol = SPATIAL_F32_SCORE_TOL if f32 else SCORE_TOL
+        heads_tol = SPATIAL_F32_HEADS_TOL if f32 else HEADS_TOL
+        rows, one = res["rows"], res["one"]
+        if rows.shape != one.shape or not np.isfinite(rows).all():
+            raise RuntimeError(f"{name} rank {rank}: rows {rows.shape} "
+                               f"against {one.shape}")
+        box, score, counts = row_errors(rows, one, box_tol, score_tol)
+        want = {"dcn_fwd": SPATIAL_LAYERS[arch], "dcn_bwd": 0}
+        joint = " and joint" if kind == "multi_pose" else ""
+        peaks = int((one[..., 4] >= PEAK_SCORE).sum())
+        print(f"{name} rank {rank} ({source}: {peaks} rows scoring >= "
+              f"{PEAK_SCORE}): B{SPATIAL_B} rows {list(rows.shape)} vs "
+              f"single-device infer_decode: box{joint} err {box:.3e} cells "
+              f"(tol {box_tol}), score err {score:.3e} (tol {score_tol}), "
+              f"rows {counts} (bitwise equal: "
+              f"{np.array_equal(rows, one)}); the last "
+              f"stack's heads {res['heads_err']:.3e} of their scale (tol "
+              f"{heads_tol}); launches {res['launches']} (want {want}); "
+              f"spatial forward + decode {res['ms']:.1f} ms, host clock "
+              f"({SPATIAL_LABEL.format(n_model)}) [{card}]", flush=True)
+        if counts["unmatched"] or res["heads_err"] > heads_tol:
+            raise RuntimeError(f"{name} rank {rank}: the spatial rows "
+                               f"disagree with the single-device path")
+        if res["launches"] != want:
+            raise RuntimeError(f"{name} rank {rank}: launches "
+                               f"{res['launches']}, want {want}")
+        if rank == 0:  # every rank's slabs have the same shapes
+            out["shapes"].update(res["shapes"])
+        entry = out["cases"].setdefault(name, {
+            "inputs": source, "launches_per_rank": res["launches"],
+            "box_err": 0.0, "score_err": 0.0, "heads_err": 0.0,
+            "peak_rows": peaks, "ms": []})
+        entry["box_err"] = max(entry["box_err"], box)
+        entry["score_err"] = max(entry["score_err"], score)
+        entry["heads_err"] = max(entry["heads_err"], res["heads_err"])
+        entry["rows"] = counts
+        entry["ms"].append(res["ms"])
+        if "control" in res:
+            _, _, c_counts = row_errors(res["control"], one, box_tol,
+                                        score_tol)
+            c_heads = res["control_heads_err"]
+            print(f"{name} rank {rank} with every halo row zero (negative "
+                  f"control): rows {c_counts}; heads {c_heads:.3e} of their "
+                  f"scale")
+            if not c_counts["unmatched"] or c_heads <= heads_tol:
+                raise RuntimeError(f"{name}: the limits do not tell a "
+                                   f"missing halo from the exchange")
+            out["control"][f"{name} rank {rank}"] = {"rows": c_counts,
+                                                     "heads_err": c_heads}
+    out["kernel_rows"] = check_kernel_at_slabs(out["shapes"], dev)
+    out["shapes"] = {str(s): n for s, n in out["shapes"].items()}
+    try:
+        cli_test(["detection", "images", "annotations", "--batched",
+                  "--spatial", "2"])
+    except SystemExit as exc:
+        msg = str(exc)
+    else:
+        raise RuntimeError("cli.test --spatial 2 ran on one card")
+    if "--spatial 2" not in msg:
+        raise RuntimeError(f"refused without naming the flag: {msg}")
+    print(f"cli.test --batched --spatial 2 refused: {msg}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -3041,6 +3484,14 @@ def main() -> int:
           "in a fresh interpreter; two gloo ranks on the one card against "
           "one process; an NCCL group of one; the CLI's refusal")
     dp = run_export_and_dp(dev, card)
+    torch.cuda.empty_cache()
+
+    phase("13 spatial sharding: make_spatial_infer in gloo ranks sharing the "
+          "card (dla_34 detection and pose bf16 and f32, resdcn_18 and "
+          "hourglass on (1, 2), dla_34 and res_18 on (1, 4); 512x512, B4) "
+          "against the single-device path; the kernel at the slab shapes; "
+          "the zero-halo control; the CLI's refusal")
+    sp = run_spatial(dev, card)
 
     def summary(name, src, tpu, kernel_rows, launches_by_path, ms,
                 more_rows):
@@ -3093,7 +3544,10 @@ def main() -> int:
                    dp["export"][kind]["launches_per_call"][name]
                    for kind in ("detection", "multi_pose")},
                 "data_parallel_per_rank_step":
-                    dp["bf16"]["launches_per_rank_step"][name]}
+                    dp["bf16"]["launches_per_rank_step"][name],
+                # phase 13: per rank and spatial forward, each case
+                **{f"spatial {case} per rank": r["launches_per_rank"][name]
+                   for case, r in sp["cases"].items()}}
 
     kernels = [
         summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
@@ -3119,6 +3573,9 @@ def main() -> int:
             {"shape": r["shape"], "radius": r["radius"], "dtype": r["dtype"],
              "ms": r[f"{which}_ms"], "bound_ms": r[f"{which}_bound_ms"],
              "max_abs_err": r["max_abs_err"][which]} for r in rows_r]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(
+        r["max_abs_err"] for r in sp["kernel_rows"]))
+    kernels[0]["slab_shapes"] = sp["kernel_rows"]
     print(json.dumps({"train": {
         "losses": losses, "grad_check": grad_check,
         "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
@@ -3130,6 +3587,8 @@ def main() -> int:
                       "other_clis": other_cli}))
     print(json.dumps({"pose_and_radius": pose}))
     print(json.dumps({"export_and_data_parallel": dp}))
+    print(json.dumps({"spatial": {k: v for k, v in sp.items()
+                                  if k != "kernel_rows"}}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
         bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
         print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "

@@ -7,8 +7,10 @@ input, batch 2, one batch an epoch) on a seeded mini-COCO:
   Adam state and the learning-rate schedule carried over;
 * ``cli.test --checkpoint`` rebuilds the task from the sidecar's hparams
   (whatever ``--arch`` says) and scores flip TTA and the batched path;
-* what the port does not have yet is refused by name (spatial sharding,
-  export, several devices), as is ``--batched`` with TTA;
+* ``cli.test --batched --spatial 2`` gives the one-process AP, printed
+  once; ``--spatial`` without ``--batched``, with a disagreeing
+  ``--num_devices`` or above the visible GPUs is refused by name, as are
+  several devices for training and ``--batched`` with TTA;
 * a restore writes the weights in place, so a task that already served
   (its bf16 cast caches filled) predicts what a fresh task does;
 * weight files that do not match the model fail loudly.
@@ -113,20 +115,45 @@ def test_test_cli_rebuilds_the_task_from_the_sidecar(trained):
         cli_test(common + ["--batched", "--flip"])
 
 
-# spatial sharding (ROADMAP A11) is what the port still lacks; serving
+# the spatial eval's refusals, by name, before any rank starts; serving
 # export came with data parallelism and is tested in
 # tests/test_torch_port_export.py
 @pytest.mark.parametrize("task, extra, item", [
-    ("multi_pose", ["--spatial", "2"], "A11"),
-    ("detection", ["--spatial", "2", "--batched"], "A11"),
+    ("multi_pose", ["--spatial", "2"],
+     r"--spatial requires --batched \(fixed shapes\)"),
+    ("detection", ["--spatial", "2", "--batched", "--num_devices", "3"],
+     "--num_devices 3 disagrees with --spatial 2"),
     ("detection", ["--spatial", "4", "--batched", "--export_serving",
-                   "x.pt"], "A11"),
+                   "x.pt", "--device", "cuda"],
+     "--spatial 4: this host has 1 visible GPU"),
 ])
 def test_test_cli_refuses_what_the_port_lacks_by_name(trained, task, extra,
-                                                      item):
+                                                      item, monkeypatch):
+    """On a host with one visible GPU: ``--spatial`` without ``--batched``,
+    with a ``--num_devices`` that disagrees, and above the visible GPUs on
+    CUDA (NCCL takes one GPU per rank)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     image_root, ann_root = trained["data"]
     with pytest.raises(SystemExit, match=item):
         cli_test([task, image_root, ann_root, "--device", "cpu", *extra])
+
+
+def test_test_cli_spatial_gives_the_one_process_ap(trained, capfd):
+    """``--batched --spatial 2 --device cpu``: two gloo ranks on a (1, 2)
+    mesh, each forwarding its half of every image's rows, the dla_34 DCNs
+    on halo slabs; the AP of one process, printed by the first rank
+    alone."""
+    image_root, ann_root = trained["data"]
+    common = ["detection", image_root, ann_root, "--checkpoint",
+              trained["last"], "--precision", "f32", "--device", "cpu",
+              "--batched", "--eval_batch_size", "2"]
+    one = cli_test(common)
+    capfd.readouterr()
+    two = cli_test(common + ["--spatial", "2"])
+    out = capfd.readouterr().out
+    assert "test/ap" in one and two == pytest.approx(one, abs=1e-6)
+    assert out.count("'test/ap'") == 1
 
 
 def test_train_cli_refuses_several_devices(trained, tmp_path):

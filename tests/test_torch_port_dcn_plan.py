@@ -18,6 +18,9 @@ checked anywhere:
   lies inside that tile's window (a hypothesis property over maps, offsets
   and radii, computed with the port's own ``_corners``);
 * the tiles cover every pixel exactly once;
+* the halo slabs of spatial sharding (a rank's rows + radius + 1 each side
+  at the whole map's radius, ``parallel/spatial.py``), 10 to 70 rows high,
+  fit and are covered, in bf16 and f32;
 * the grids are non-empty and, at the models' shapes, put at least 128
   blocks in flight in every launch of the wgmma forward and of the backward
   (132 SMs; 16x16 C512 has 16 tiles x 8 chunks = 128 and no more).
@@ -191,3 +194,57 @@ def test_every_in_image_corner_lies_in_the_tiles_window(h, w, big, seed):
         assert ok[inside].all()
         hit += int(inside.sum())
     assert hit > 0
+
+
+# Spatial sharding (parallel/spatial.py) runs each DCN on its rank's slab of
+# the map extended by radius + 1 rows each side, at the whole map's radius:
+# the heights the kernel meets there (chip_smoke.py phase 13: dla_34 and
+# resdcn_18 at 512x512, B4, 2 ranks; dla_34 4 ranks, where the 16x16 map's
+# halo of 5 rows is deeper than a 4-row slab; tests/test_torch_port_spatial.py:
+# dla_34 and resdcn_18 at 128x128 over 2 model ranks, the 4x4 map's halo of
+# 4 rows against 2-row slabs).
+def _slab(name, b, side, ci, co, n_model):
+    r = dcn_radius(side, side)
+    return (f"{name}-1x{n_model}", b, side // n_model + 2 * (r + 1), side, ci,
+            co, r)
+
+
+SLAB_CASES = (
+    [_slab("dla_34", 4, hw, ci, co, n) for hw, ci, co in DLA34
+     for n in (2, 4)]
+    + [_slab("resdcn_18", 4, hw, ci, co, 2) for hw, ci, co in RES18]
+    + [_slab("dla_34-128", 1, hw // 4, ci, co, 2) for hw, ci, co in DLA34]
+    + [_slab("resdcn_18-128", 1, hw // 4, ci, co, 2)
+       for hw, ci, co in RES18])
+
+
+def test_slab_cases_are_the_spatial_heights():
+    """The table's rows: dla_34's 128x128 map over 2 ranks is 64 + 2 x 3
+    rows at radius 2; 16x16 over 4 ranks 4 + 2 x 5; at 128x128 the 4x4 map
+    over 2 ranks 2 + 2 x 4 at radius 3 (a halo deeper than the slab)."""
+    by = {(c[0], c[3], c[4]): c for c in SLAB_CASES}
+    assert by[("dla_34-1x2", 128, 64)][2::4] == (70, 2)
+    assert by[("dla_34-1x4", 16, 512)][2::4] == (14, 4)
+    assert by[("dla_34-128-1x2", 4, 512)][2::4] == (10, 3)
+    assert by[("resdcn_18-1x2", 64, 128)][2::4] == (42, 4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SLAB_CASES,
+                         ids=lambda c: f"{c[0]}-B{c[1]}-{c[2]}x{c[3]}-C{c[4]}-"
+                                       f"{c[5]}-r{c[6]}")
+def test_halo_slabs_fit_and_the_tiles_cover_them(case, dtype):
+    _, b, h, w, ci, co, r = case
+    plan = launch_plan(b, h, w, ci, co, dtype, r)
+    assert plan["halo"] == r + 1 and plan["window"] == TILE + 2 * (r + 1)
+    for nbytes in (plan["fwd"]["smem"], plan["bwd"]["smem_dx"],
+                   plan["bwd"]["smem_dw"]):
+        assert 0 <= nbytes <= SMEM_LIMIT
+    assert plan["fast"] == (dtype == torch.bfloat16)
+    assert plan["tiles"] == b * -(-h // TILE) * -(-w // TILE)
+    assert all(g >= 1 for g in plan["fwd"]["grid"])
+    seen = np.zeros((b, h, w), np.int32)
+    for t in range(plan["tiles"]):
+        img, y0, x0 = tile_origin(t, h, w)
+        seen[img, y0:y0 + TILE, x0:x0 + TILE] += 1
+    assert (seen == 1).all()

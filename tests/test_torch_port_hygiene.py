@@ -3,9 +3,9 @@
 * The port imports neither JAX nor the JAX package. The test suite's conftest
   imports JAX into this process, so the check runs in a fresh interpreter.
   The walk covers every module, the CLIs (``cli``), ``utils``, the data
-  loader, ``entry``, ``parallel.mesh`` and ``utils.export`` among them; a
-  fresh interpreter that loads and runs a serving program with
-  ``load_serving`` alone holds neither either.
+  loader, ``entry``, ``parallel.mesh``, ``parallel.spatial``, ``ops.halo``
+  and ``utils.export`` among them; a fresh interpreter that loads and runs a
+  serving program with ``load_serving`` alone holds neither either.
 * Entry points default to CUDA and raise without it instead of running on the
   CPU; the CPU is used only when the caller asks for it (``entry()`` and the
   CLIs included).
@@ -43,8 +43,10 @@ bad = sorted(m for m in sys.modules
 want = {"centernet_tpu_torch." + m for m in (
     "cli.common", "cli.detection", "cli.multi_pose", "cli.test",
     "data.coco", "data.loader", "data.transforms", "entry",
-    "models.hourglass", "models.resnet", "models.resnet_dcn", "ops.nms",
-    "parallel.mesh", "parallel.trainer", "tasks.multi_pose",
+    "models.hourglass", "models.resnet", "models.resnet_dcn", "ops.halo",
+    "ops.nms",
+    "parallel.mesh", "parallel.spatial", "parallel.trainer",
+    "tasks.multi_pose",
     "utils.checkpoint", "utils.coco_eval", "utils.export", "utils.logging",
     "utils.profiling", "utils.torch_import")}
 assert want <= set(names), sorted(want - set(names))

@@ -12,7 +12,8 @@ mini-COCO:
 * ``--num_devices`` above the visible GPUs is refused by name, as one that
   disagrees with ``torchrun``'s world size;
 * ``entry.dryrun_multichip(2, device="cpu")``: one resdcn_18 step over two
-  ranks, the same loss and update in both.
+  ranks, the same loss and update in both, then spatially sharded inference
+  of the trained weights on a (1, 2) mesh.
 """
 
 import json
@@ -89,11 +90,13 @@ def test_num_devices_beyond_the_gpus_or_torchrun_is_refused(tmp_path,
                   "cpu", "--num_devices", "2"])
 
 
-def test_dryrun_multichip_on_cpu():
-    """Two gloo ranks when the CPU is asked for; without it the hook wants
-    CUDA and raises where there is none."""
+def test_dryrun_multichip_on_cpu(capfd):
+    """Two gloo ranks when the CPU is asked for, then the 2-D part: the
+    trained weights serve one image spatially sharded on a (1, 2) mesh;
+    without the CPU the hook wants CUDA and raises where there is none."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             dryrun_multichip(2)
     loss = dryrun_multichip(2, device="cpu")
     assert loss == loss and loss > 0
+    assert "spatial rows [1, 100, 6] on a (1, 2) mesh" in capfd.readouterr().out
