@@ -215,7 +215,6 @@ class DLASeg(nn.Module):
     64-channel map, in the compute dtype."""
 
     num_stacks = 1
-    deepest_stride = 32  # level5
 
     def __init__(self, down_ratio: int = 4, last_level: int = 5,
                  levels: Sequence[int] = (1, 1, 1, 2, 2, 1),

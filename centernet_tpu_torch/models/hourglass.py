@@ -147,11 +147,6 @@ class HourglassNet(nn.Module):
         self.inters = nn.ModuleList(HgResidual(curr_dim, curr_dim, dtype=dtype)
                                     for _ in range(num_stacks - 1))
 
-    @property
-    def deepest_stride(self) -> int:
-        """``pre``'s 4 times the modules' n halvings."""
-        return 4 * 2 ** self.n
-
     def forward(self, x) -> List[torch.Tensor]:
         inter = self.pre(x)
         outs = []

@@ -3,9 +3,9 @@
 Tensors are NCHW in ``torch.channels_last`` memory. Convolutions hold f32
 parameters and compute in the model's dtype; BatchNorm keeps f32 parameters
 and statistics and returns the compute dtype (its affine math runs in f32),
-as the JAX ``ConvBNAct`` does (``ops/modules.py``). The transpose convs
-and ``max_pool2d`` exchange their halo rows under spatial sharding
-(``ops/halo.py``), as ``ops/modules.py::Conv2d`` does.
+as the JAX ``ConvBNAct`` does (``ops/modules.py``). The transpose convs,
+``max_pool2d`` and ``upsample_nearest_2x`` compute this rank's band under
+spatial sharding (``ops/halo.py``), as ``ops/modules.py::Conv2d`` does.
 """
 
 from __future__ import annotations
@@ -23,24 +23,24 @@ from ..ops import halo
 def conv_transpose(x: torch.Tensor, w: torch.Tensor,
                    m: nn.ConvTranspose2d) -> torch.Tensor:
     """``F.conv_transpose2d`` of ``x`` with ``w`` and ``m``'s geometry (no
-    bias); on this rank's slab under spatial sharding."""
+    bias); this rank's band under spatial sharding."""
     if halo.current_axis() is None:
         return F.conv_transpose2d(x, w, None, m.stride, m.padding,
                                   m.output_padding, m.groups, m.dilation)
-    rows = halo.halo_rows("transpose", m.kernel_size[0], m.stride[0],
-                          m.padding[0])
-    return halo.on_slab(x, rows, 0.0, lambda e: F.conv_transpose2d(
-        e, w, None, m.stride, (0, m.padding[1]), m.output_padding, m.groups,
-        m.dilation))
+    rows = halo.RowMap("transpose", m.kernel_size[0], m.stride[0],
+                       m.padding[0], m.output_padding[0])
+    return halo.on_band(x, rows, 0.0, lambda e: F.conv_transpose2d(
+        e, w, None, m.stride, (0, m.padding[1]), (0, m.output_padding[1]),
+        m.groups, m.dilation))
 
 
 def max_pool2d(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
-    """``F.max_pool2d(x, k, s, p)``; on this rank's slab under spatial
+    """``F.max_pool2d(x, k, s, p)``; this rank's band under spatial
     sharding, the rows outside the image at -inf (the pool's own
     padding)."""
     if halo.current_axis() is None:
         return F.max_pool2d(x, k, s, p)
-    return halo.on_slab(x, halo.halo_rows("pool", k, s, p), float("-inf"),
+    return halo.on_band(x, halo.RowMap("conv", k, s, p), float("-inf"),
                         lambda e: F.max_pool2d(e, k, s, (0, p)))
 
 
@@ -141,8 +141,12 @@ class ConvTransposeBNAct(nn.Sequential):
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
-    """``nn.Upsample(scale_factor=2)``: each pixel repeated 2 x 2 (exact)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    """``nn.Upsample(scale_factor=2)``: each pixel repeated 2 x 2 (exact);
+    this rank's band under spatial sharding."""
+    if halo.current_axis() is None:
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return halo.on_band(x, halo.RowMap("nearest", s=2), 0.0, lambda e:
+                        F.interpolate(e, scale_factor=2, mode="nearest"))
 
 
 @torch.no_grad()

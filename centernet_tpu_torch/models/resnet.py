@@ -93,8 +93,6 @@ class ResNetStages(nn.Module):
     residual stages to stride 32. Only a stage's first block may downsample
     its residual, and only where the stride or the width changes."""
 
-    deepest_stride = 32  # layer4
-
     def __init__(self, block: Type[nn.Module], layers: Sequence[int],
                  dtype: torch.dtype = torch.float32):
         super().__init__()

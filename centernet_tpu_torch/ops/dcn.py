@@ -29,8 +29,9 @@ PyTorch version, a CUDA tensor to the hand-written kernel, which raises
 rather than falls back.
 
 Under spatial sharding (``ops/halo.py``) a ``DCN`` clamps at the radius of
-the whole map and runs the forward operator on its slab extended by
-radius + 1 rows of the neighbouring ranks.
+the whole map (its global height, ``halo.global_rows``) and runs the
+forward operator on its band extended by radius + 1 rows of the other
+ranks (a rank with an empty band: on those 2 (radius + 1) rows alone).
 """
 
 from __future__ import annotations
@@ -263,8 +264,8 @@ class DCN(CastCache, nn.Module):
         x = x.to(self.dtype)
         h, w = x.shape[-2:]
         axis = halo.current_axis()
-        # under spatial sharding x is a slab: the radius is the whole map's
-        rows = h if axis is None else h * axis.size
+        # under spatial sharding x is a band: the radius is the whole map's
+        rows = h if axis is None else halo.global_rows(x)
         r = dcn_radius(rows, w, self.radius, self.radius_fine)
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)  # NHWC view
         offsets = om[..., :2 * KK].float()
@@ -279,21 +280,26 @@ class DCN(CastCache, nn.Module):
                 dcn_weight_matrix(self.weight), self.bias, r)
             return y.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
         # serving: the forward operator alone (torch.export traces it). On a
-        # slab a sample of a row reaches at most r + 1 rows away, so the
-        # operator runs on the slab with r + 1 rows of x each side (zero
+        # band a sample of a row reaches at most r + 1 rows away, so the
+        # operator runs on the band with r + 1 rows of x each side (zero
         # outside the image, as the kernel reads there) and zero offsets and
-        # mask on those rows, whose outputs are dropped.
+        # mask on those rows, whose outputs are dropped; on an empty band,
+        # on those rows alone.
         offsets = offsets.clamp(lo, hi)
         e = 0 if axis is None else r + 1
         if e:
-            x = halo.exchange_halo(x, e, e)
+            x = halo.exchange_halo(x, rows, e, e)
             offsets, mask = (F.pad(t, (0, 0, 0, 0, e, e))
                              for t in (offsets, mask))
         wmat = self.cached(
             "weight", lambda t: dcn_weight_matrix(t).to(self.dtype))
         y = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask, wmat,
                           self.bias, r)
-        return halo.crop_rows(y.permute(0, 3, 1, 2), e, e)
+        y = y.permute(0, 3, 1, 2)  # NCHW view, channels_last strides
+        if not e:
+            return y
+        return y[:, :, e:y.shape[2] - e].contiguous(
+            memory_format=torch.channels_last)
 
 
 class DeformConvBNAct(nn.Module):

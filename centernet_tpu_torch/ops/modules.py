@@ -114,11 +114,15 @@ class Conv2d(CastCache, nn.Conv2d):
         dt = self.compute_dtype
         x = x.to(dt)
         w, b = self.param_as("weight", dt), self.param_as("bias", dt)
-        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
-        if halo.current_axis() is None or k == 1:
+        if halo.current_axis() is None:
             return self._conv_forward(x, w, b)
-        return halo.on_slab(
-            x, halo.halo_rows("conv", k, s, p), 0.0,
+        k, s, p = self.kernel_size[0], self.stride[0], self.padding[0]
+        if k == 1 and s == 1:  # row-local
+            if x.shape[2]:
+                return self._conv_forward(x, w, b)
+            return halo.empty_rows(x, lambda e: self._conv_forward(e, w, b))
+        return halo.on_band(
+            x, halo.RowMap("conv", k, s, p), 0.0,
             lambda e: F.conv2d(e, w, b, self.stride, (0, self.padding[1]),
                                self.dilation, self.groups))
 

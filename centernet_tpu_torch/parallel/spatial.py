@@ -4,16 +4,18 @@ devices, its rows split among the ranks of a mesh's ``model`` axis, the
 latency axis that data parallelism cannot reach.
 
 The JAX package shards the image's H axis with a ``NamedSharding`` and
-XLA inserts every halo exchange. The port runs one process per rank, so
-the exchange is explicit: each rank runs the model on its slab of the rows
-under ``ops/halo.py::sharded_rows``, and every op that reads neighbouring
-rows takes them from the other ranks of the model axis (``ops/halo.py``
-says which ops and how). A slab is exact when its first row is a multiple
-of every stride on the way down, so H must divide by the model axis times
-the arch's deepest stride (the backbone's ``deepest_stride``); the JAX
-package also takes uneven internal shards, which GSPMD pads.
+XLA inserts every halo exchange, padding uneven internal shards. The port
+runs one process per rank, so the exchange is explicit: each rank runs the
+model on its band of the rows under ``ops/halo.py::sharded_rows``, every
+map's band follows one rule of the map's global height (``ops/halo.py::
+band``), and every op that reads other rows than its own takes them from
+the ranks that hold them (``ops/halo.py`` says which ops and how). So the
+port takes what the JAX package takes: a batch that divides by the data
+axis and an image H that divides by the model axis, for an arch whose
+single-device forward takes that H; bands of a deep map may differ by a
+row or be empty.
 
-``make_spatial_infer`` runs the forward on each rank's slab of its data
+``make_spatial_infer`` runs the forward on each rank's band of its data
 share, gathers the last stack's head maps over the model axis
 (``ops/halo.py::gather_rows``) and decodes them with the task's own
 ``decode_heads``, so the NMS and the top-K are the single-device code.
@@ -25,7 +27,8 @@ from typing import Callable
 
 import torch
 
-from ..ops.halo import SpatialAxis, all_gather, gather_rows, sharded_rows
+from ..ops.halo import SpatialAxis, all_gather, band, gather_rows, \
+    sharded_rows
 from .mesh import data_group, data_rank_and_size, model_group, \
     model_rank_and_size
 
@@ -34,12 +37,13 @@ __all__ = ["make_spatial_heads", "make_spatial_infer", "spatial_image_rows"]
 
 def spatial_image_rows(images, mesh):
     """This rank's rows of a global NHWC batch: its data-axis share of the
-    batch and its model-axis slab of H (the port's
+    batch and its model-axis band of H (the port's
     ``spatial_image_sharding``)."""
     d, n_data = data_rank_and_size(mesh)
     m, n_model = model_rank_and_size(mesh)
-    b, h = images.shape[0] // n_data, images.shape[1] // n_model
-    return images[d * b:(d + 1) * b, m * h:(m + 1) * h]
+    b = images.shape[0] // n_data
+    start, stop = band(images.shape[1], n_model, m)
+    return images[d * b:(d + 1) * b, start:stop]
 
 
 def make_spatial_heads(task, mesh) -> Callable:
@@ -47,28 +51,30 @@ def make_spatial_heads(task, mesh) -> Callable:
     and the image H axis over its ``model`` axis: ``fn(images)`` takes the
     global NHWC batch (uint8, or float already normalised) on every rank and
     returns this data rank's share of it as the last stack's NHWC f32 head
-    maps of the whole image (every slab's, gathered over the model axis).
-    The batch must divide by the data axis and H by the model axis times
-    the arch's deepest stride."""
+    maps of the whole image (every band's, gathered over the model axis).
+    The batch must divide by the data axis and H by the model axis. The
+    first call at an image size records the global height of every map the
+    forward's ops read (``ops/halo.py::global_rows``); later calls at that
+    size replay it."""
     n_data = data_rank_and_size(mesh)[1]
     m, n_model = model_rank_and_size(mesh)
     axis = SpatialAxis(model_group(mesh), n_model, m)
-    stride = task.model.backbone.deepest_stride
+    records = {}
 
     def fn(images):
         b, h = images.shape[0], images.shape[1]
         if b % n_data:
             raise ValueError(f"batch {b} not divisible by data axis {n_data}")
-        if h % (n_model * stride):
+        if h % n_model:
             raise ValueError(
                 f"image H {h} must be divisible by the model axis "
-                f"({n_model}) times the arch's deepest stride ({stride}) for "
-                f"spatial sharding")
+                f"({n_model}) for spatial sharding")
+        heights = records.setdefault(tuple(images.shape[1:3]), [])
         with torch.inference_mode():
             x = task.prep_images(spatial_image_rows(images, mesh))
             x = x.permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
-            with sharded_rows(axis):
+            with sharded_rows(axis, heights):
                 return {k: gather_rows(v).permute(0, 2, 3, 1)
                         for k, v in task.model(x)[-1].items()}
 

@@ -108,22 +108,27 @@ raises and the script exits non-zero without printing a result:
 13. spatial sharding: ``parallel.spatial.make_spatial_infer`` in gloo ranks
    sharing the one card (``(1, 2)`` mesh: dla_34 detection and pose in bf16
    and in f32 with TF32 off, resdcn_18 and the hourglass in bf16; ``(1, 4)``:
-   dla_34 and res_18 detection in bf16; 512x512, B4). dla_34 detection in
-   f32 and res_18 serve weights trained (200 and 800 steps) on images of
-   bright rectangles, some straddling the slabs' seams, so
+   dla_34 and res_18 detection in bf16; 512x512, B4); then on uneven bands
+   (``ops/halo.py::band``): dla_34 detection at 480x640 in f32 on (1, 2)
+   (its 15-row stride-32 map split 7 + 8) and in bf16 on (1, 4), and the
+   full hourglass at 512x512 in bf16 on ``(1, 8)`` (its 4-row stride-128
+   map leaves every other band empty). dla_34 detection in f32 (both
+   sizes) and res_18 serve weights trained (200 and 800 steps, at 512x512)
+   on images of bright rectangles, some straddling the bands' seams, so
    that their heat maps hold distinct peaks; the others phase 4's seeded
    weights on noise.
    Each rank's rows against its own single-device ``infer_decode`` as sets
    and the last stack's heads of ``make_spatial_heads`` against ``apply``'s
-   (bf16 at phase 4's tolerances, f32 at the SPATIAL_F32_* bounds);
-   16 ``dcn_fwd`` launches per rank per dla_34 forward (3 for resdcn_18) and
-   no ``dcn_bwd``, the DCN layers on halo slabs; the kernel against its
-   plain version at every slab shape met (bf16 and f32, phase 3's
-   tolerances; times and bounds); the trained runs (dla_34 f32 on (1, 2),
-   res_18 bf16 on (1, 4)) with every halo row zero must miss the limits on
-   the rows and on the heads; the spatial forward's host time, labelled as ranks sharing one
+   (bf16 at phase 4's tolerances, f32 at the SPATIAL_F32_* bounds); each
+   rank's ``dcn_fwd`` calls against the band plan (``dcn_slab_plan``: 16
+   per dla_34 forward, 3 per resdcn_18 one, each at its band's slab shape)
+   and no ``dcn_bwd``; the kernel against its plain version at every slab
+   shape met (bf16 and f32, phase 3's tolerances; times and bounds); the
+   trained runs (dla_34 f32 on (1, 2) at both sizes, res_18 bf16 on (1, 4))
+   with every halo row zero must miss the limits on the rows and on the
+   heads; the spatial forward's host time, labelled as ranks sharing one
    card (not a latency number); ``cli.test --batched --spatial 2`` refused
-   by name on the one card.
+   by name on the one card; the phase's seconds.
 
 Every kernel time printed by launched kernel name is checked against the
 CUDA-event time of the same call and dropped when they disagree (the
@@ -2869,23 +2874,43 @@ SPATIAL_B = 4
 # 3.4e-3 to 9.1e-3 over six runs, too near SCORE_TOL for a check that must
 # pass every run; f32 holds them to 2e-6, res_18 (trained the same every
 # run) to 7.2e-3.
+SQUARE = (HW, HW)
 SPATIAL_CASES_2 = [
-    ("dla_34", "detection", torch.bfloat16, "noise"),
-    ("dla_34", "detection", torch.float32, "peaks"),
-    ("dla_34", "multi_pose", torch.bfloat16, "noise"),
-    ("dla_34", "multi_pose", torch.float32, "noise"),
-    ("resdcn_18", "detection", torch.bfloat16, "noise"),
-    ("hourglass", "detection", torch.bfloat16, "noise"),
+    ("dla_34", "detection", torch.bfloat16, "noise", SQUARE),
+    ("dla_34", "detection", torch.float32, "peaks", SQUARE),
+    ("dla_34", "multi_pose", torch.bfloat16, "noise", SQUARE),
+    ("dla_34", "multi_pose", torch.float32, "noise", SQUARE),
+    ("resdcn_18", "detection", torch.bfloat16, "noise", SQUARE),
+    ("hourglass", "detection", torch.bfloat16, "noise", SQUARE),
 ]
-SPATIAL_CASES_4 = [("dla_34", "detection", torch.bfloat16, "noise"),
-                   ("res_18", "detection", torch.bfloat16, "peaks")]
+SPATIAL_CASES_4 = [
+    ("dla_34", "detection", torch.bfloat16, "noise", SQUARE),
+    ("res_18", "detection", torch.bfloat16, "peaks", SQUARE)]
+# Uneven bands: image heights that the model axis divides but the model
+# axis times the deepest stride does not. dla_34 at 480x640 (a 640x480
+# COCO image's height) on (1, 2): the stride-32 map's 15 rows split 7 + 8;
+# on (1, 4) also the stride-16 map's 30 rows (7 + 8 + 7 + 8). The full
+# hourglass at 512x512 on (1, 8): its stride-128 map's 4 rows leave every
+# other band empty, and the stride-64 map's 8 rows give one row a band.
+COCO_HW = (480, 640)
+SPATIAL_UNEVEN = {
+    2: [("dla_34", "detection", torch.float32, "peaks", COCO_HW)],
+    4: [("dla_34", "detection", torch.bfloat16, "noise", COCO_HW)],
+    8: [("hourglass", "detection", torch.bfloat16, "noise", SQUARE)],
+}
+SPATIAL_LAUNCHES = [(2, SPATIAL_CASES_2 + SPATIAL_UNEVEN[2]),
+                    (4, SPATIAL_CASES_4 + SPATIAL_UNEVEN[4]),
+                    (8, SPATIAL_UNEVEN[8])]
 # the cases that also run with every halo row zero: each must miss the
 # limits on the rows and on the heads
-SPATIAL_CONTROLS = {SPATIAL_CASES_2[1], SPATIAL_CASES_4[1]}
+SPATIAL_CONTROLS = {SPATIAL_CASES_2[1], SPATIAL_CASES_4[1],
+                    SPATIAL_UNEVEN[2][0]}
 # ``peak_images``: PEAK_BOXES bright rectangles per image, 12-27 pixels a
 # side (3-7 cells at stride 4: a bf16 width of under 8 cells rounds by at
-# most 1/64 of a cell, far inside BOX_TOL), the first three straddling the
-# rows where the slabs of a (1, 2) and a (1, 4) mesh meet. ``train_peaks``
+# most 1/64 of a cell, far inside BOX_TOL), the first ones straddling the
+# rows where the bands of a (1, 2) and a (1, 4) mesh meet (PEAK_CUTS; at
+# 480x640 the (1, 2) edges: row 240 at every stride but 32, where the
+# 15-row map's 7 + 8 put it at 7 x 32 = 224). ``train_peaks``
 # takes PEAK_STEPS Adam steps at PEAK_LR on them. res_18's training is the
 # same every run: after 800 steps its ``hm_loss`` reads 0.0226 and its rows
 # the same numbers call after call. dla_34's is a new draw every run (the
@@ -2894,6 +2919,7 @@ SPATIAL_CONTROLS = {SPATIAL_CASES_2[1], SPATIAL_CASES_4[1]}
 # the f32 comparison, which every draw tried held to 2e-5 cells, and the
 # control, which every draw failed by 68 rows or more.
 PEAK_BOXES = 12
+PEAK_CUTS = {SQUARE: [HW // 4, HW // 2, 3 * HW // 4], COCO_HW: [224, 240]}
 PEAK_SIDE = (12, 28)
 PEAK_LR = 5e-4
 PEAK_STEPS = {"dla_34": 200, "res_18": 800}
@@ -2912,34 +2938,46 @@ SPATIAL_F32_HEADS_TOL = 1e-4
 # NMS or the top-K cut keep other cells.
 SPATIAL_TIE = 1e-4
 SPATIAL_TIMED = 5
-SPATIAL_LAYERS = {"dla_34": 16, "resdcn_18": 3, "res_18": 0, "hourglass": 0}
+# (map side at a 512x512 input, Ci, Co, layers) of each arch's DCN layers
+RESDCN18_DCN = [(16, 512, 256, 1), (32, 256, 128, 1), (64, 128, 64, 1)]
+SPATIAL_DCN = {"dla_34": DLA34_DCN, "resdcn_18": RESDCN18_DCN, "res_18": [],
+               "hourglass": []}
 
 
-def zero_halo(x, top, bottom, fill=0.0):
-    """The negative control's exchange: every halo row is ``fill``, each slab
-    forwarded as an image of its own."""
+def zero_halo(x, rows, windows, fill=0.0):
+    """The negative control's ``fetch_rows``: this rank's own rows of its
+    window and ``fill`` for every other row, each band forwarded as an
+    image of its own."""
+    from centernet_tpu_torch.ops import halo
+
+    axis = halo.current_axis()
+    a, b = halo.band(rows, axis.size, axis.index)
+    lo, hi = windows[axis.index]
+    u, v = min(max(lo, a), hi), max(min(hi, b), lo)
     n, c, _, w = x.shape
-    return torch.cat([x.new_full((n, c, top, w), fill), x,
-                      x.new_full((n, c, bottom, w), fill)], 2).contiguous(
-        memory_format=torch.channels_last)
+    own = x[:, :, u - a:v - a] if u < v else x.new_empty((n, c, 0, w))
+    return torch.cat([x.new_full((n, c, u - lo, w), fill), own,
+                      x.new_full((n, c, hi - max(u, v), w), fill)],
+                     2).contiguous(memory_format=torch.channels_last)
 
 
-def peak_images():
-    """SPATIAL_B images (uint8, HW x HW) of PEAK_BOXES bright rectangles on
-    dark noise, 8 pixels apart, the first three straddling rows HW/4, HW/2
-    and 3 HW/4; and their padded annotations (COCO xywh, class 0)."""
+def peak_images(hw=SQUARE):
+    """SPATIAL_B images (uint8, H x W) of PEAK_BOXES bright rectangles on
+    dark noise, 8 pixels apart, the first ones straddling the rows of
+    PEAK_CUTS[hw]; and their padded annotations (COCO xywh, class 0)."""
     rng = np.random.default_rng(SEED + 131)
-    imgs = rng.integers(0, 39, (SPATIAL_B, HW, HW, 3), dtype=np.uint8)
+    ih, iw = hw
+    imgs = rng.integers(0, 39, (SPATIAL_B, ih, iw, 3), dtype=np.uint8)
     boxes = np.zeros((SPATIAL_B, 128, 4), np.float32)
     valid = np.zeros((SPATIAL_B, 128), bool)
-    cuts = [HW // 4, HW // 2, 3 * HW // 4]
+    cuts = PEAK_CUTS[hw]
     for i in range(SPATIAL_B):
         k = 0
         while k < PEAK_BOXES:
             w, h = (int(v) for v in rng.integers(*PEAK_SIDE, 2))
-            x = int(rng.integers(2, HW - w - 2))
+            x = int(rng.integers(2, iw - w - 2))
             y = (cuts[k] - int(rng.integers(h // 4, 3 * h // 4) + 1)
-                 if k < len(cuts) else int(rng.integers(2, HW - h - 2)))
+                 if k < len(cuts) else int(rng.integers(2, ih - h - 2)))
             if any(x < bx + bw + 8 and bx < x + w + 8 and y < by + bh + 8
                    and by < y + h + 8 for bx, by, bw, bh in boxes[i, :k]):
                 continue
@@ -3018,16 +3056,20 @@ def spatial_rank(n_model, cases, weights):
     torch.backends.cudnn.allow_tf32 = False
     dev = f"cuda:{torch.cuda.current_device()}"
     mesh = make_mesh(1, n_model, device_type="cuda")
-    inputs = {"noise": np.random.default_rng(SEED + 130).integers(
-        0, 256, (SPATIAL_B, HW, HW, 3), dtype=np.uint8),
-        "peaks": peak_images()[0]}
+
+    def inputs(source, hw):
+        if source == "peaks":
+            return peak_images(hw)[0]
+        return np.random.default_rng(SEED + 130).integers(
+            0, 256, (SPATIAL_B, *hw, 3), dtype=np.uint8)
+
     launch = dcn_cuda.deform_conv2d_cuda
     out = []
     for case in cases:
-        arch, kind, dtype, source = case
+        arch, kind, dtype, source, hw = case
         task = spatial_task(arch, kind, dtype, dev,
                             weights[arch] if source == "peaks" else None)
-        images = inputs[source]
+        images = inputs(source, hw)
         infer = spatial.make_spatial_infer(task, mesh)
         infer(images)  # cuDNN's first calls at the slab shapes
         shapes = collections.Counter()
@@ -3048,19 +3090,19 @@ def spatial_rank(n_model, cases, weights):
             dcn_cuda.deform_conv2d_cuda = launch
         heads = spatial.make_spatial_heads(task, mesh)
         one_heads = task.apply(images)[-1]
-        res = {"case": (arch, kind, str(dtype)[6:], source),
+        res = {"case": (arch, kind, str(dtype)[6:], source, hw),
                "launches": launches, "shapes": dict(shapes),
                "rows": rows.float().cpu().numpy(),
                "one": task.infer_decode(images).float().cpu().numpy(),
                "heads_err": heads_error(heads(images), one_heads)}
         if case in SPATIAL_CONTROLS:
-            exchange, halo.exchange_halo = halo.exchange_halo, zero_halo
+            fetch, halo.fetch_rows = halo.fetch_rows, zero_halo
             try:
                 res["control"] = infer(images).float().cpu().numpy()
                 res["control_heads_err"] = heads_error(heads(images),
                                                        one_heads)
             finally:
-                halo.exchange_halo = exchange
+                halo.fetch_rows = fetch
         times = []
         for _ in range(SPATIAL_TIMED):
             torch.cuda.synchronize()
@@ -3121,11 +3163,32 @@ def row_errors(got, want, box_tol, score_tol):
     return box_err, score_err, counts
 
 
+def dcn_slab_plan(arch, hw, dtype, n_model, m):
+    """The band plan's ``dcn_fwd`` calls on rank ``m`` of a ``(1, n_model)``
+    mesh in one spatial forward of ``arch`` at ``hw`` (B SPATIAL_B): every
+    DCN layer once, on the rank's band of its map (``ops/halo.py::band``)
+    extended by r + 1 rows each side at the whole map's radius r, an empty
+    band on those 2 (r + 1) rows alone; as a Counter of (B, slab H, W, Ci,
+    Co, r, dtype)."""
+    from centernet_tpu_torch.ops.dcn import dcn_radius
+    from centernet_tpu_torch.ops.halo import band
+
+    plan = collections.Counter()
+    for side_, ci, co, layers in SPATIAL_DCN[arch]:
+        h, w = hw[0] * side_ // HW, hw[1] * side_ // HW
+        r = dcn_radius(h, w)
+        a, b = band(h, n_model, m)
+        plan[(SPATIAL_B, b - a + 2 * (r + 1), w, ci, co, r,
+              str(dtype)[6:])] += layers
+    return plan
+
+
 def check_kernel_at_slabs(shapes, dev):
     """The forward kernel against its plain version at every shape it met on
     the halo slabs ((B, H, W, Ci, Co, radius, dtype) with the whole map's
-    radius), in bf16 and f32, at phase 3's tolerances; its time there (cold
-    L2, with the lead), the plain version's and the bound."""
+    radius; ``shapes`` counts the calls of every rank), in bf16 and f32, at
+    phase 3's tolerances; its time there (cold L2, with the lead), the
+    plain version's and the bound."""
     from centernet_tpu_torch.ops.dcn import deform_conv2d_reference
     from centernet_tpu_torch.ops.dcn_cuda import deform_conv2d_cuda
 
@@ -3152,13 +3215,13 @@ def check_kernel_at_slabs(shapes, dev):
                       if s[:6] == (b, h, w, ci, co, r)
                       and s[6] == str(dtype)[6:])
             rows.append({"shape": f"B{b} {h}x{w} C{ci}->{co}", "radius": r,
-                         "dtype": str(dtype)[6:], "calls_per_rank": met,
+                         "dtype": str(dtype)[6:], "calls": met,
                          "max_abs_err": err, "max_rel_err": rel,
                          "tol": KERNEL_TOL[dtype], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by})
             print(f"slab B{b} {h:>3}x{w:<3} C{ci}->{co} r{r} "
-                  f"{str(dtype)[6:]:>8} (calls per rank {met}): abs err "
+                  f"{str(dtype)[6:]:>8} (calls, all ranks {met}): abs err "
                   f"{err:.3e} rel {rel:.3e} (tol {KERNEL_TOL[dtype]:.0e}); "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{1e3 * bound:.2f} us ({by})", flush=True)
@@ -3176,37 +3239,43 @@ def run_spatial(dev, card):
     """Phase 13: ``make_spatial_infer`` in gloo ranks sharing the card (dla_34
     detection and pose bf16 and f32, resdcn_18 and hourglass bf16 on a
     (1, 2) mesh; dla_34 and res_18 detection bf16 on (1, 4); dla_34 f32
-    and res_18 on weights trained to distinct peaks) against each
-    rank's single-device ``infer_decode``; the DCN kernel's launches on the
-    slabs and the kernel against its plain version at every slab shape; the
-    zero-halo control; the CLI's refusal of more ranks than cards."""
+    and res_18 on weights trained to distinct peaks; on uneven bands,
+    dla_34 detection at 480x640 in f32 on the trained weights on (1, 2) and
+    in bf16 on (1, 4), the hourglass at 512x512 bf16 on (1, 8)) against each
+    rank's single-device ``infer_decode``; each rank's DCN kernel calls
+    against the band plan and the kernel against its plain version at every
+    slab shape; the zero-halo control; the CLI's refusal of more ranks than
+    cards."""
     import os
     import tempfile
 
     from centernet_tpu_torch.cli.test import cli_test
     from centernet_tpu_torch.parallel.mesh import launch
 
+    t_phase = time.perf_counter()
     out = {"cases": {}, "shapes": collections.Counter(), "control": {}}
     results = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_peaks_") as root:
         weights = {}
-        for arch in sorted({c[0] for c in SPATIAL_CASES_2 + SPATIAL_CASES_4
-                            if c[3] == "peaks"}):
+        for arch in sorted({c[0] for _, cases in SPATIAL_LAUNCHES
+                            for c in cases if c[3] == "peaks"}):
             weights[arch] = os.path.join(root, f"{arch}.pt")
             out[f"{arch}_peak_training"] = train_peaks(arch, dev,
                                                        weights[arch], card)
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        for n_model, cases in ((2, SPATIAL_CASES_2), (4, SPATIAL_CASES_4)):
+        for n_model, cases in SPATIAL_LAUNCHES:
+            t0 = time.perf_counter()
             ranks = launch(spatial_rank, n_model, n_model, cases, weights,
                            device_type="cuda", backend="gloo",
                            local_ranks=[0] * n_model)
+            print(f"{n_model} ranks ran in {time.perf_counter() - t0:.1f} s",
+                  flush=True)
             results += [(n_model, r, case) for r, res in enumerate(ranks)
                         for case in res]
-    print(f"ranks ran in {time.perf_counter() - t0:.1f} s")
     for n_model, rank, res in results:
-        arch, kind, dtype, source = res["case"]
-        name = f"{arch} {kind} {dtype} 1x{n_model}"
+        arch, kind, dtype, source, hw = res["case"]
+        name = f"{arch} {kind} {dtype} 1x{n_model}" + (
+            "" if hw == SQUARE else f" {hw[0]}x{hw[1]}")
         f32 = dtype == "float32"
         box_tol = SPATIAL_F32_BOX_TOL if f32 else BOX_TOL
         score_tol = SPATIAL_F32_SCORE_TOL if f32 else SCORE_TOL
@@ -3216,7 +3285,8 @@ def run_spatial(dev, card):
             raise RuntimeError(f"{name} rank {rank}: rows {rows.shape} "
                                f"against {one.shape}")
         box, score, counts = row_errors(rows, one, box_tol, score_tol)
-        want = {"dcn_fwd": SPATIAL_LAYERS[arch], "dcn_bwd": 0}
+        plan = dcn_slab_plan(arch, hw, getattr(torch, dtype), n_model, rank)
+        want = {"dcn_fwd": sum(plan.values()), "dcn_bwd": 0}
         joint = " and joint" if kind == "multi_pose" else ""
         peaks = int((one[..., 4] >= PEAK_SCORE).sum())
         print(f"{name} rank {rank} ({source}: {peaks} rows scoring >= "
@@ -3226,21 +3296,25 @@ def run_spatial(dev, card):
               f"rows {counts} (bitwise equal: "
               f"{np.array_equal(rows, one)}); the last "
               f"stack's heads {res['heads_err']:.3e} of their scale (tol "
-              f"{heads_tol}); launches {res['launches']} (want {want}); "
-              f"spatial forward + decode {res['ms']:.1f} ms, host clock "
-              f"({SPATIAL_LABEL.format(n_model)}) [{card}]", flush=True)
+              f"{heads_tol}); launches {res['launches']} (band plan "
+              f"{want}); spatial forward + decode {res['ms']:.1f} ms, host "
+              f"clock ({SPATIAL_LABEL.format(n_model)}) [{card}]",
+              flush=True)
         if counts["unmatched"] or res["heads_err"] > heads_tol:
             raise RuntimeError(f"{name} rank {rank}: the spatial rows "
                                f"disagree with the single-device path")
-        if res["launches"] != want:
+        if res["launches"] != want or res["shapes"] != plan:
             raise RuntimeError(f"{name} rank {rank}: launches "
-                               f"{res['launches']}, want {want}")
-        if rank == 0:  # every rank's slabs have the same shapes
-            out["shapes"].update(res["shapes"])
+                               f"{res['launches']} at {res['shapes']}, the "
+                               f"band plan {want} at {dict(plan)}")
+        out["shapes"].update(res["shapes"])
         entry = out["cases"].setdefault(name, {
-            "inputs": source, "launches_per_rank": res["launches"],
+            "inputs": source,
+            "launches_per_rank": {k: [] for k in res["launches"]},
             "box_err": 0.0, "score_err": 0.0, "heads_err": 0.0,
             "peak_rows": peaks, "ms": []})
+        for k, n in res["launches"].items():
+            entry["launches_per_rank"][k].append(n)
         entry["box_err"] = max(entry["box_err"], box)
         entry["score_err"] = max(entry["score_err"], score)
         entry["heads_err"] = max(entry["heads_err"], res["heads_err"])
@@ -3270,6 +3344,8 @@ def run_spatial(dev, card):
     if "--spatial 2" not in msg:
         raise RuntimeError(f"refused without naming the flag: {msg}")
     print(f"cli.test --batched --spatial 2 refused: {msg}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 13: {out['seconds']:.1f} s [{card}]", flush=True)
     return out
 
 
@@ -3488,9 +3564,11 @@ def main() -> int:
 
     phase("13 spatial sharding: make_spatial_infer in gloo ranks sharing the "
           "card (dla_34 detection and pose bf16 and f32, resdcn_18 and "
-          "hourglass on (1, 2), dla_34 and res_18 on (1, 4); 512x512, B4) "
-          "against the single-device path; the kernel at the slab shapes; "
-          "the zero-halo control; the CLI's refusal")
+          "hourglass on (1, 2), dla_34 and res_18 on (1, 4); 512x512, B4; "
+          "uneven bands: dla_34 at 480x640 on (1, 2) and (1, 4), the "
+          "hourglass on (1, 8)) against the single-device path; the kernel "
+          "at the slab shapes and the band plan; the zero-halo control; the "
+          "CLI's refusal")
     sp = run_spatial(dev, card)
 
     def summary(name, src, tpu, kernel_rows, launches_by_path, ms,

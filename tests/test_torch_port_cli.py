@@ -8,7 +8,8 @@ input, batch 2, one batch an epoch) on a seeded mini-COCO:
 * ``cli.test --checkpoint`` rebuilds the task from the sidecar's hparams
   (whatever ``--arch`` says) and scores flip TTA and the batched path;
 * ``cli.test --batched --spatial 2`` gives the one-process AP, printed
-  once; ``--spatial`` without ``--batched``, with a disagreeing
+  once, and so does ``--spatial 4``, whose deepest map leaves bands empty;
+  ``--spatial`` without ``--batched``, with a disagreeing
   ``--num_devices`` or above the visible GPUs is refused by name, as are
   several devices for training and ``--batched`` with TTA;
 * a restore writes the weights in place, so a task that already served
@@ -153,6 +154,24 @@ def test_test_cli_spatial_gives_the_one_process_ap(trained, capfd):
     two = cli_test(common + ["--spatial", "2"])
     out = capfd.readouterr().out
     assert "test/ap" in one and two == pytest.approx(one, abs=1e-6)
+    assert out.count("'test/ap'") == 1
+
+
+def test_test_cli_spatial_on_uneven_bands_gives_the_one_process_ap(
+        trained, capfd):
+    """``--batched --spatial 4`` at the 64x64 input: the stride-32 map's 2
+    rows over 4 ranks leave two bands empty (``ops/halo.py::band``), which
+    the JAX package's spatial path takes too; the AP of one process,
+    printed once."""
+    image_root, ann_root = trained["data"]
+    common = ["detection", image_root, ann_root, "--checkpoint",
+              trained["last"], "--precision", "f32", "--device", "cpu",
+              "--batched", "--eval_batch_size", "2"]
+    one = cli_test(common)
+    capfd.readouterr()
+    four = cli_test(common + ["--spatial", "4"])
+    out = capfd.readouterr().out
+    assert "test/ap" in one and four == pytest.approx(one, abs=1e-6)
     assert out.count("'test/ap'") == 1
 
 

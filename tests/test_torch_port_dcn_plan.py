@@ -18,9 +18,10 @@ checked anywhere:
   lies inside that tile's window (a hypothesis property over maps, offsets
   and radii, computed with the port's own ``_corners``);
 * the tiles cover every pixel exactly once;
-* the halo slabs of spatial sharding (a rank's rows + radius + 1 each side
-  at the whole map's radius, ``parallel/spatial.py``), 10 to 70 rows high,
-  fit and are covered, in bf16 and f32;
+* the halo slabs of spatial sharding (a rank's band + radius + 1 rows each
+  side at the whole map's radius, ``parallel/spatial.py``), 4 to 70 rows
+  high, on equal, unequal and empty bands, fit and are covered, in bf16
+  and f32;
 * the grids are non-empty and, at the models' shapes, put at least 128
   blocks in flight in every launch of the wgmma forward and of the backward
   (132 SMs; 16x16 C512 has 16 tiles x 8 chunks = 128 and no more).
@@ -35,6 +36,7 @@ from hypothesis import strategies as st
 from centernet_tpu_torch.ops.dcn import CLIP_EPS, _corners, dcn_radius
 from centernet_tpu_torch.ops.dcn_cuda import (H100_SMS, SMEM_LIMIT, TILE,
                                               launch_plan, tile_origin)
+from centernet_tpu_torch.ops.halo import band
 from tests.torch_port_common import tta_dcn_shapes
 
 # (map side, Ci, Co) at a 512x512 input
@@ -196,37 +198,72 @@ def test_every_in_image_corner_lies_in_the_tiles_window(h, w, big, seed):
     assert hit > 0
 
 
-# Spatial sharding (parallel/spatial.py) runs each DCN on its rank's slab of
+# Spatial sharding (parallel/spatial.py) runs each DCN on its rank's band of
 # the map extended by radius + 1 rows each side, at the whole map's radius:
 # the heights the kernel meets there (chip_smoke.py phase 13: dla_34 and
 # resdcn_18 at 512x512, B4, 2 ranks; dla_34 4 ranks, where the 16x16 map's
-# halo of 5 rows is deeper than a 4-row slab; tests/test_torch_port_spatial.py:
-# dla_34 and resdcn_18 at 128x128 over 2 model ranks, the 4x4 map's halo of
-# 4 rows against 2-row slabs).
-def _slab(name, b, side, ci, co, n_model):
-    r = dcn_radius(side, side)
-    return (f"{name}-1x{n_model}", b, side // n_model + 2 * (r + 1), side, ci,
-            co, r)
+# halo of 5 rows is deeper than a 4-row band; dla_34 at 480x640 over 2 and
+# 4 ranks, where the 15x20 map splits 7 + 8 and 3 + 4 + 4 + 4 rows and the
+# 30x40 one 7 + 8 + 7 + 8; tests/test_torch_port_spatial.py: dla_34 and
+# resdcn_18 at 128x128 over 2 model ranks, the 4x4 map's halo of 4 rows
+# against 2-row bands; tests/test_torch_port_spatial_uneven.py: resdcn_18
+# and dla_34 at 96x128 over 2, whose 3x4 map splits 1 + 2, and dla_34 at
+# 64x128 over 4, whose 2x4 map leaves two bands empty: a slab of 2 (r + 1)
+# rows).
+def _slabs(name, b, rows, w, ci, co, n_model):
+    """The distinct slab heights of a ``rows`` x ``w`` map over ``n_model``
+    ranks: each rank's band (``ops/halo.py::band``) + 2 (r + 1) rows."""
+    r = dcn_radius(rows, w)
+    heights = sorted({stop - start + 2 * (r + 1) for start, stop in (
+        band(rows, n_model, m) for m in range(n_model))})
+    return [(f"{name}-1x{n_model}", b, h, w, ci, co, r) for h in heights]
 
 
 SLAB_CASES = (
-    [_slab("dla_34", 4, hw, ci, co, n) for hw, ci, co in DLA34
-     for n in (2, 4)]
-    + [_slab("resdcn_18", 4, hw, ci, co, 2) for hw, ci, co in RES18]
-    + [_slab("dla_34-128", 1, hw // 4, ci, co, 2) for hw, ci, co in DLA34]
-    + [_slab("resdcn_18-128", 1, hw // 4, ci, co, 2)
-       for hw, ci, co in RES18])
+    [c for hw, ci, co in DLA34 for n in (2, 4)
+     for c in _slabs("dla_34", 4, hw, hw, ci, co, n)]
+    + [c for hw, ci, co in RES18 for c in _slabs("resdcn_18", 4, hw, hw, ci,
+                                                  co, 2)]
+    + [c for hw, ci, co in DLA34 for c in _slabs("dla_34-128", 1, hw // 4,
+                                                  hw // 4, ci, co, 2)]
+    + [c for hw, ci, co in RES18 for c in _slabs("resdcn_18-128", 1, hw // 4,
+                                                  hw // 4, ci, co, 2)]
+    + [c for hw, ci, co in DLA34 for n in (2, 4)
+       for c in _slabs("dla_34-480x640", 4, hw * 15 // 16, hw * 5 // 4, ci,
+                       co, n)]
+    + [c for hw, ci, co in DLA34 for c in _slabs("dla_34-96x128", 1,
+                                                  hw * 3 // 16, hw // 4, ci,
+                                                  co, 2)]
+    + [c for hw, ci, co in RES18 for c in _slabs("resdcn_18-96x128", 2,
+                                                  hw * 3 // 16, hw // 4, ci,
+                                                  co, 2)]
+    + [c for hw, ci, co in DLA34 for c in _slabs("dla_34-64x128", 1,
+                                                  hw // 8, hw // 4, ci, co,
+                                                  4)])
 
 
 def test_slab_cases_are_the_spatial_heights():
     """The table's rows: dla_34's 128x128 map over 2 ranks is 64 + 2 x 3
     rows at radius 2; 16x16 over 4 ranks 4 + 2 x 5; at 128x128 the 4x4 map
-    over 2 ranks 2 + 2 x 4 at radius 3 (a halo deeper than the slab)."""
-    by = {(c[0], c[3], c[4]): c for c in SLAB_CASES}
-    assert by[("dla_34-1x2", 128, 64)][2::4] == (70, 2)
-    assert by[("dla_34-1x4", 16, 512)][2::4] == (14, 4)
-    assert by[("dla_34-128-1x2", 4, 512)][2::4] == (10, 3)
-    assert by[("resdcn_18-1x2", 64, 128)][2::4] == (42, 4)
+    over 2 ranks 2 + 2 x 4 at radius 3 (a halo deeper than the band); at
+    480x640 the 15x20 map over 2 ranks 7 + 2 x 5 and 8 + 2 x 5 at radius 4,
+    over 4 ranks 3 + 2 x 5 and 4 + 2 x 5, the 120x160 map over 4 30 + 2 x 3
+    at radius 2; at 96x128 the 3x4 map over 2 1 + 2 x 3 and 2 + 2 x 3 at
+    radius 2; at 64x128 over 4 the 2x4 map's empty bands 0 + 2 x 2 at
+    radius 1."""
+    by = {}
+    for c in SLAB_CASES:
+        by.setdefault((c[0], c[3], c[4]), []).append(c[2::4])
+    assert by[("dla_34-1x2", 128, 64)] == [(70, 2)]
+    assert by[("dla_34-1x4", 16, 512)] == [(14, 4)]
+    assert by[("dla_34-128-1x2", 4, 512)] == [(10, 3)]
+    assert by[("resdcn_18-1x2", 64, 128)] == [(42, 4)]
+    assert by[("dla_34-480x640-1x2", 20, 512)] == [(17, 4), (18, 4)]
+    assert by[("dla_34-480x640-1x4", 20, 512)] == [(13, 4), (14, 4)]
+    assert by[("dla_34-480x640-1x4", 40, 256)] == [(17, 4), (18, 4)] * 3
+    assert by[("dla_34-480x640-1x4", 160, 64)] == [(36, 2)]
+    assert by[("resdcn_18-96x128-1x2", 4, 512)] == [(7, 2), (8, 2)]
+    assert by[("dla_34-64x128-1x4", 4, 512)] == [(4, 1), (5, 1)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
