@@ -1,7 +1,8 @@
 """Entry points, the port's counterparts of ``__graft_entry__.py``.
 
 * ``entry()``: dla_34 detection forward + ``ctdet_decode`` in bf16 on the
-  card, with example arguments::
+  card, compiled as ``__graft_entry__.py::entry`` jits it (a CUDA graph per
+  input shape, ``utils/graphs.py``), with example arguments::
 
       fn, args = entry()
       dets = fn(*args)  # [1, 100, 6] on the card
@@ -30,8 +31,10 @@ DRYRUN_SIZE = 64
 
 def entry():
     """(fn, example_args): ``fn(images)`` runs the bf16 dla_34 forward, the
-    sigmoid and the decode on normalised NHWC f32 images -> [B, 100, 6];
-    the example is one 512x512 image, the weights are seeded."""
+    sigmoid and the decode on normalised NHWC f32 images -> [B, 100, 6],
+    as the task's serving graphs (the first call at a shape is the eager
+    warm-up, the second captures, later ones replay); the example is one
+    512x512 image, the weights are seeded."""
     from .tasks.detection import CenterNetDetection
 
     task = CenterNetDetection("dla_34", dtype=torch.bfloat16, seed=0)

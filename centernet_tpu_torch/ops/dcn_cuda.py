@@ -16,7 +16,11 @@ C side refuses a plan whose sizes it does not arrive at itself.
 
 ``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` grow by one at
 every call that launches the kernel and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels. While a CUDA graph is captured
+(``recording_launches``), a call records its kernel into the graph and
+launches nothing: it is counted in the capture's record instead, and the
+graph adds that record to ``launch_counts`` at each replay
+(``count_replay``, called by ``utils/graphs.py``).
 
 The operators ``torch.ops.centernet_tpu_torch.dcn_fwd`` and ``.dcn_bwd``
 (``torch.library.custom_op``) dispatch by device: the kernels for CUDA
@@ -28,6 +32,7 @@ checks on data pointers stay in the real implementations.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -47,6 +52,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 launch_counts: collections.Counter = collections.Counter()
+_capture_record = None  # the Counter of the capture in progress, if any
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``, or, during a capture, one recorded in it."""
+    record = launch_counts if _capture_record is None else _capture_record
+    record[kernel] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While a CUDA graph is captured: yields a Counter of the kernels the
+    wrappers record into it, which ``launch_counts`` does not see (a capture
+    launches nothing)."""
+    global _capture_record
+    outer, _capture_record = _capture_record, collections.Counter()
+    try:
+        yield _capture_record
+    finally:
+        _capture_record = outer
+
+
+def count_replay(record: collections.Counter) -> None:
+    """A replay of a graph launched the kernels its capture recorded."""
+    launch_counts.update(record)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -309,7 +339,7 @@ def deform_conv2d_cuda(x, offsets, mask, weight, bias,
     if err != 0:
         raise RuntimeError(
             f"dcn_fwd launch failed: {lib.dcn_error_string(err).decode()}")
-    launch_counts["dcn_fwd"] += 1
+    _count("dcn_fwd")
     return out
 
 
@@ -351,7 +381,7 @@ def deform_conv2d_backward_cuda(x, offsets, mask, weight, g,
     if err != 0:
         raise RuntimeError(
             f"dcn_bwd launch failed: {lib.dcn_error_string(err).decode()}")
-    launch_counts["dcn_bwd"] += 1
+    _count("dcn_bwd")
     # the tiles' overlapping dx windows are summed in f32 in device memory;
     # the one rounding to x's dtype comes after the last of them
     return dx.to(x.dtype), dty, dtx, dmask, dw

@@ -8,6 +8,12 @@
   optimizer step or ``load_state_dict`` writes the parameter in place, which
   bumps its version counter, and a move to another device changes its
   storage. A served forward therefore launches no cast kernel per conv.
+  A stale copy is refreshed in place (same storage, new values), so that a
+  captured CUDA graph that reads it keeps reading the right buffer. A
+  replay runs no Python, so it neither checks the keys nor bumps a version:
+  a graph that reads the copies calls ``refresh_casts`` on its modules
+  before each replay, and a graph that writes parameters (the train step)
+  calls ``mark_written`` on them after each one.
   A trace (``torch.export``, ``torch.compile``) stores nothing in the
   cache: a traced parameter has no storage to key on, and the cache must
   not keep a traced tensor. It traces the cast, or, inside
@@ -73,6 +79,19 @@ def casts_from_cache():
         _CASTS_FROM_CACHE = before
 
 
+GRAPH_WRITES = "_graph_writes"  # a parameter's count of replayed updates
+
+
+def mark_written(params) -> None:
+    """A replayed graph wrote ``params`` (their versions did not move)."""
+    for p in params:
+        setattr(p, GRAPH_WRITES, getattr(p, GRAPH_WRITES, 0) + 1)
+
+
+def _cast_key(p: torch.Tensor) -> tuple:
+    return (p.data_ptr(), p._version, p.device, getattr(p, GRAPH_WRITES, 0))
+
+
 class CastCache:
     """Mixin for modules holding f32 parameters used in another dtype."""
 
@@ -86,13 +105,24 @@ class CastCache:
             if _CASTS_FROM_CACHE and hit is not None:
                 return hit[1]
             return make(p.detach())
-        key = (p.data_ptr(), p._version, p.device)
         cache = self.__dict__.setdefault("_cast_cache", {})
         hit = cache.get(name)
-        if hit is None or hit[0] != key:
-            hit = (key, make(p.detach()))
-            cache[name] = hit
+        if hit is None:
+            hit = cache[name] = [_cast_key(p), make(p.detach()), make]
+        elif hit[0] != _cast_key(p):
+            _refresh(hit, p)
         return hit[1]
+
+    def refresh_casts(self) -> int:
+        """Refresh this module's stale cached copies in place; returns how
+        many were stale."""
+        stale = 0
+        for name, hit in self.__dict__.get("_cast_cache", {}).items():
+            p = getattr(self, name)
+            if hit[0] != _cast_key(p):
+                _refresh(hit, p)
+                stale += 1
+        return stale
 
     def param_as(self, name: str, dtype: torch.dtype):
         p = getattr(self, name)
@@ -101,6 +131,28 @@ class CastCache:
         if recording(self):
             return p.to(dtype)
         return self.cached(name, lambda t: t.to(dtype))
+
+
+def cast_refresher(module: nn.Module) -> Callable[[], int]:
+    """A function that refreshes every stale cast copy cached under
+    ``module`` in place and returns how many it refreshed: the host-side
+    check a captured graph that reads the copies runs before each replay."""
+    caches = [m for m in module.modules() if isinstance(m, CastCache)]
+    return lambda: sum(m.refresh_casts() for m in caches)
+
+
+def _refresh(hit: list, p: torch.Tensor) -> None:
+    """Recompute a cache entry ``[key, copy, make]`` from ``p``: into the
+    same storage where the copy keeps its shape, type and device."""
+    with torch.inference_mode():  # the copy may be an inference tensor
+        value = hit[2](p.detach())
+        old = hit[1]
+        if (value.shape, value.dtype, value.device) == (
+                old.shape, old.dtype, old.device):
+            old.copy_(value)
+        else:
+            hit[1] = value
+    hit[0] = _cast_key(p)
 
 
 class Conv2d(CastCache, nn.Conv2d):

@@ -22,6 +22,18 @@ step's only device-side collectives are ``all_reduce`` and ``broadcast``.
 Evaluation takes each rank's share of the images (the caller strides the
 ids) and gathers the COCO rows of every rank, in rank order, before
 scoring.
+
+Compiled steps (``compiled``, the default on CUDA without a mesh): each step
+runs as one captured CUDA graph per signature (``utils/graphs.py``), the
+counterpart of the JAX trainer's ``jax.jit`` of both steps. The host arrays
+are copied into the graph's static buffers outside it; the normalisation,
+the target encoding, the forward, the loss, the backward of every
+micro-batch, the clip and the fused Adam update are inside. A train step's
+first call at a signature is its eager warm-up (a real step, which creates
+Adam's state), its second captures and replays; the learning-rate schedule
+is stepped on the host after each call. With a mesh the steps stay eager:
+a gloo collective cannot be captured (NCCL capture is ROADMAP A13's next
+step).
 """
 
 from __future__ import annotations
@@ -36,8 +48,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.modules import global_statistics
+from ..ops.modules import cast_refresher, global_statistics, mark_written
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+from ..utils.graphs import GraphedCall, resolve_compiled
 from ..utils.logging import MetricsLogger
 from .mesh import data_group, data_rank_and_size, is_main_process
 
@@ -75,9 +88,24 @@ def broadcast_state(model: torch.nn.Module, group) -> None:
             dist.broadcast(t, src=src, group=group)
 
 
+def _steps_compiled(task, mesh, compiled: Optional[bool]) -> bool:
+    """Whether ``task``'s steps run as graphs: ``None`` follows the task
+    (``task.compiled``), eager under a mesh."""
+    if mesh is not None:
+        if compiled:
+            raise ValueError(
+                "compiled=True with a mesh: the data-parallel step's gloo "
+                "collectives cannot be captured in a CUDA graph; NCCL "
+                "capture is ROADMAP A13's next step (pass compiled=False)")
+        return False
+    if compiled is None:
+        return task.compiled
+    return resolve_compiled(compiled, task.device)
+
+
 def make_train_step(task, opt, accumulate_grad_batches: int = 1,
                     gradient_clip_val: Optional[float] = None,
-                    mesh=None) -> Callable:
+                    mesh=None, compiled: Optional[bool] = None) -> Callable:
     """Build ``step(images, target) -> stats`` for ``task`` and ``opt``
     (``task.configure_optimizer``).
 
@@ -91,6 +119,10 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
     update sees the mean gradient. ``stats`` are the loss and its parts,
     averaged over the micro-batches, as 0-d tensors on the device.
 
+    ``compiled`` (default: the task's, eager with a mesh) runs the step as
+    CUDA graphs (the module docstring); ``step.update`` is the device work
+    of one step on device tensors, the graph's body.
+
     With a ``mesh``, the step runs on every rank of its ``data`` axis, each
     with its contiguous slice of the global batch (whose size must divide
     by K times the ranks, as micro-batch j is then rows j, j + K, ... of
@@ -100,17 +132,15 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
     the gradients are summed over the ranks before the clip, and ``stats``
     are the global batch's on every rank.
     """
+    graphed = _steps_compiled(task, mesh, compiled)
     k = accumulate_grad_batches
     params = [p for p in task.model.parameters() if p.requires_grad]
     group = data_group(mesh)
     if group is not None:
         broadcast_state(task.model, group)
 
-    def step(images, target) -> Dict[str, torch.Tensor]:
-        img, target = _to_device(task, images, target)
-        if img.shape[0] % k:
-            raise ValueError(f"batch size {img.shape[0]} must divide by "
-                             f"accumulate_grad_batches={k}")
+    def update(images, *target_values, names) -> Dict[str, torch.Tensor]:
+        img, target = _to_device(task, images, dict(zip(names, target_values)))
         stats: Dict[str, torch.Tensor] = {}
         task.train()
         try:
@@ -127,11 +157,24 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
                 _all_reduce_grads(params, group)
             if gradient_clip_val:
                 torch.nn.utils.clip_grad_norm_(params, gradient_clip_val)
-            opt.step()
+            opt.update()
         finally:
             task.eval()
         return _all_reduced_stats(stats, group)
 
+    run = update if not graphed else GraphedCall(
+        update, task.graph_pool, after_replay=lambda: mark_written(params))
+
+    def step(images, target) -> Dict[str, torch.Tensor]:
+        if images.shape[0] % k:
+            raise ValueError(f"batch size {images.shape[0]} must divide by "
+                             f"accumulate_grad_batches={k}")
+        stats = run(images, *target.values(), names=tuple(target))
+        opt.step_schedule()
+        return stats
+
+    step.update = update
+    step.graphed = run if graphed else None
     return step
 
 
@@ -142,18 +185,31 @@ def _to_device(task, images, target):
     return img, task.maybe_encode_targets(tuple(img.shape[1:3]), target)
 
 
-def make_eval_step(task, mesh=None) -> Callable:
+def make_eval_step(task, mesh=None, compiled: Optional[bool] = None
+                   ) -> Callable:
     """Build ``eval_step(images, target) -> stats``: the loss and its parts
     of the model in eval mode (running BN statistics), as 0-d tensors; with
-    a ``mesh``, those of the global batch whose slice each rank holds."""
+    a ``mesh``, those of the global batch whose slice each rank holds.
+    ``compiled`` as ``make_train_step``'s; ``eval_step.update`` is the
+    graph's body (the eval casts are refreshed before each replay)."""
+    graphed = _steps_compiled(task, mesh, compiled)
     group = data_group(mesh)
 
     @torch.inference_mode()
-    def eval_step(images, target) -> Dict[str, torch.Tensor]:
-        img, target = _to_device(task, images, target)
+    def update(images, *target_values, names) -> Dict[str, torch.Tensor]:
+        img, target = _to_device(task, images, dict(zip(names, target_values)))
         _, stats = task.loss(task.apply(img), target, group)
         return _all_reduced_stats(stats, group)
 
+    run = update if not graphed else GraphedCall(
+        update, task.graph_pool, before_replay=cast_refresher(task.model))
+
+    @torch.inference_mode()
+    def eval_step(images, target) -> Dict[str, torch.Tensor]:
+        return run(images, *target.values(), names=tuple(target))
+
+    eval_step.update = update
+    eval_step.graphed = run if graphed else None
     return eval_step
 
 
@@ -175,11 +231,11 @@ class TrainState:
 
     def load_state_dict(self, state: Mapping) -> None:
         """Load in place: the parameters are copied into (their eval cast
-        caches go stale with their version), Adam's moments move to the
-        parameters' device."""
+        caches go stale with their version), and so are Adam's moments,
+        step counts and learning rate (``Optimizer.load_state_dict``, which
+        also reads the port's earlier unfused format)."""
         self.model.load_state_dict(state["model"])
-        self.opt.adam.load_state_dict(state["adam"])
-        self.opt.schedule.load_state_dict(state["schedule"])
+        self.opt.load_state_dict(state["adam"], state["schedule"])
         self.step = int(state["step"])
 
 
@@ -240,7 +296,8 @@ class Trainer:
     """Fit, validate, checkpoint and evaluate a task on its device; with a
     ``mesh``, data-parallel over its ``data`` axis (one process per rank,
     each with its slice of the loaders' global batches). The first rank
-    alone logs and writes checkpoints."""
+    alone logs and writes checkpoints. The steps run as graphs where the
+    task is ``compiled`` (``make_train_step``)."""
 
     def __init__(
         self,
@@ -305,6 +362,8 @@ class Trainer:
                 start_epoch = int(meta["epoch"]) + 1
             else:
                 start_epoch = self.state.step // self.steps_per_epoch
+        # built once per fit, as the JAX trainer caches its jitted steps: a
+        # new batch shape (a smaller last batch) is a new graph
         train_step = make_train_step(
             self.task, self.state.opt,
             accumulate_grad_batches=self.accumulate_grad_batches,

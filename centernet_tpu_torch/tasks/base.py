@@ -13,7 +13,15 @@
   (``prepare_image_fixed``), the valid-region mask, the on-device target
   encoding and the optimizer (Adam + MultiStep LR). Its entry points take
   NHWC images, as the JAX package's do. The model is in ``eval()`` mode
-  except inside a train step.
+  except inside a train step. With ``compiled`` (the default on CUDA,
+  ``utils/graphs.py::resolve_compiled``) its forward + decode runs as one
+  captured CUDA graph per input signature (``serving``), the port's
+  counterpart of the JAX tasks' jitted ``_infer_decode_jit``;
+  ``compiled=False`` runs it eagerly.
+* ``Optimizer``: fused Adam whose update a captured train step can hold
+  (its learning rate and step counts are tensors on the parameters'
+  device), and its MultiStep schedule, stepped on the host after each
+  update.
 * ``resize_bilinear``: ``jax.image.resize(..., "bilinear")`` in PyTorch,
   antialiased when it shrinks, which ``F.interpolate`` is not.
 """
@@ -32,7 +40,8 @@ from ..data.transforms import normalize_coeffs
 from ..models import CenterHead, create_model
 from ..models.layers import init_parameters
 from ..ops.dcn import DCN, DEFAULT_RADIUS, DEFAULT_RADIUS_FINE
-from ..ops.modules import frozen_statistics
+from ..ops.modules import cast_refresher, frozen_statistics, mark_written
+from ..utils.graphs import GraphedCall, GraphPool, resolve_compiled
 
 
 def arch_head_conv(arch: str) -> int:
@@ -119,8 +128,11 @@ class CenterNetModel(nn.Module):
     def forward(self, x) -> List[Dict[str, torch.Tensor]]:
         x = x.to(self.dtype)
         if self.remat and self.training and torch.is_grad_enabled():
+            # the model draws no random numbers, so no RNG state is kept
+            # (reading the CUDA one would break a graph capture)
             feats = torch.utils.checkpoint.checkpoint(
                 self.backbone, x, use_reentrant=False,
+                preserve_rng_state=False,
                 context_fn=lambda: (contextlib.nullcontext(),
                                     frozen_statistics(self.backbone)))
         else:
@@ -129,8 +141,17 @@ class CenterNetModel(nn.Module):
 
 
 class Optimizer:
-    """Adam and its MultiStep learning-rate schedule, stepped together: the
-    schedule counts optimizer updates, as optax's does."""
+    """Adam and its MultiStep learning-rate schedule; the schedule counts
+    optimizer updates, as optax's does. ``update`` is the device work of one
+    Adam update, which a captured train step holds: Adam is fused, its
+    learning rate a 0-d tensor and its step counts on the parameters'
+    device. ``step_schedule`` is host work (``MultiStepLR`` ``fill_``s the
+    learning-rate tensor in place) and runs after each update, or after
+    each replay of a captured one; ``step`` does both."""
+
+    # what this class sets in each parameter group, whatever a loaded state
+    # holds: the learning-rate tensor a captured update reads, fusion
+    _OWN = ("lr", "fused", "capturable")
 
     def __init__(self, adam: torch.optim.Adam,
                  schedule: torch.optim.lr_scheduler.MultiStepLR):
@@ -140,15 +161,50 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def update(self) -> None:
         self.adam.step()
+        # the fused update writes the parameters without bumping their
+        # versions: mark them for the eval casts (``ops.modules``)
+        mark_written(p for g in self.adam.param_groups for p in g["params"])
+
+    def step_schedule(self) -> None:
         self.schedule.step()
+
+    def step(self) -> None:
+        self.update()
+        self.step_schedule()
+
+    def load_state_dict(self, adam: Mapping, schedule: Mapping) -> None:
+        """Load Adam's and the schedule's states, written by this class or
+        by the port's earlier unfused Adam (a float learning rate, step
+        counts on the host). The values are copied into this optimizer's
+        own tensors where they exist (moments, step counts, the learning
+        rate), so that a captured train step goes on reading them, and each
+        group keeps this optimizer's settings in ``_OWN``."""
+        own = [{k: g[k] for k in self._OWN} for g in self.adam.param_groups]
+        before = {p: dict(st) for p, st in self.adam.state.items()}
+        self.adam.load_state_dict(adam)
+        with torch.no_grad():
+            for group, mine in zip(self.adam.param_groups, own):
+                mine["lr"].fill_(float(group["lr"]))
+                group.update(mine)
+                for p in group["params"]:
+                    loaded = self.adam.state.get(p)
+                    if not loaded:
+                        continue
+                    loaded["step"] = loaded["step"].to(p.device, torch.float32)
+                    if p in before:
+                        for k, v in loaded.items():
+                            before[p][k].copy_(v)
+                        self.adam.state[p] = before[p]
+        self.schedule.load_state_dict(schedule)
 
 
 class CenterNet:
     """Task base: model, arch constants, image preparation, optimizer.
     ``dcn_radius`` / ``dcn_radius_fine`` set the DCN layers' offset clamp
-    (the JAX package's ``CENTERNET_TPU_DCN_RADIUS`` / ``_FINE``)."""
+    (the JAX package's ``CENTERNET_TPU_DCN_RADIUS`` / ``_FINE``);
+    ``compiled`` whether serving runs as CUDA graphs (``None``: on CUDA)."""
 
     heads: Mapping[str, int] = {}
     mean = (0.408, 0.447, 0.470)  # BGR
@@ -159,8 +215,10 @@ class CenterNet:
                  seed: int = 0, learning_rate: float = 25e-5,
                  learning_rate_milestones: Optional[Sequence[int]] = None,
                  dcn_radius: int = DEFAULT_RADIUS,
-                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE,
+                 compiled: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.compiled = resolve_compiled(compiled, self.device)
         self.arch = arch
         self.dcn_radius = dcn_radius
         self.dcn_radius_fine = dcn_radius_fine
@@ -181,6 +239,14 @@ class CenterNet:
         scale, bias = normalize_coeffs(self.mean, self.std)
         self._norm_scale = torch.from_numpy(scale).to(self.device)
         self._norm_bias = torch.from_numpy(bias).to(self.device)
+        # the task's graphs share one memory pool (utils/graphs.py), also
+        # those of a compiled step on an eager task; serving reads the eval
+        # casts, refreshed before each replay
+        self.graph_pool = (GraphPool(self.device)
+                           if self.device.type == "cuda" else None)
+        self.serving = None if not self.compiled else GraphedCall(
+            self.forward_decode, self.graph_pool,
+            before_replay=cast_refresher(self.model))
 
     def hparams(self) -> Dict[str, Any]:
         """What rebuilds this task from a checkpoint alone (``tasks.
@@ -227,6 +293,37 @@ class CenterNet:
         """NHWC images -> per stack, a dict of NHWC f32 head outputs."""
         return self.heads_nhwc(self.prep_images(images))
 
+    def decode_heads(self, out, valid_hw=None, flip: bool = False):
+        raise NotImplementedError
+
+    @torch.inference_mode()
+    def forward_decode(self, images, valid_hw=None, flip: bool = False
+                       ) -> torch.Tensor:
+        """``infer_decode`` eagerly: the last stack's heads, decoded (the
+        body of the serving graphs)."""
+        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
+
+    @torch.inference_mode()
+    def infer_decode(self, images, valid_hw=None, flip: bool = False
+                     ) -> torch.Tensor:
+        """``forward_decode``; on a compiled task one CUDA graph per shape
+        and dtype of ``images``, ``flip``, and ``valid_hw`` given or not (a
+        bounded number: batched eval has one image size, TTA's shapes are
+        rounded up to ``tta_bucket``, as the JAX package bounds its jit
+        programs, and ``infer_tta`` serves eagerly without a bucket)."""
+        if self.serving is None:
+            return self.forward_decode(images, valid_hw, flip)
+        return self.serving(images, valid_hw, flip=flip)
+
+    def infer_tta(self, images, valid_hw, flip: bool) -> torch.Tensor:
+        """``predict``'s forward + decode of one scale: ``infer_decode``,
+        but eager at ``tta_bucket`` 0. The reference's exact geometry gives a
+        shape per image size, and a graph per shape would keep its buffers on
+        the card for the task's lifetime."""
+        if self.tta_bucket:
+            return self.infer_decode(images, valid_hw, flip)
+        return self.forward_decode(images, valid_hw, flip)
+
     def maybe_encode_targets(self, input_hw: Tuple[int, int],
                              target: Dict[str, torch.Tensor]):
         """Raw padded annotations (``boxes``, ``classes``, ``valid``, from
@@ -246,10 +343,18 @@ class CenterNet:
         """Adam (b1 0.9, b2 0.999, eps 1e-8) at ``learning_rate``, times 0.1
         from each epoch milestone on (``steps_per_epoch`` converts them into
         update counts; milestones that land on one count apply once, as the
-        JAX package's boundary dict has them)."""
+        JAX package's boundary dict has them). Fused, with the learning
+        rate a 0-d f32 tensor on the parameters' device (``Optimizer``)."""
         params = [p for p in self.model.parameters() if p.requires_grad]
-        adam = torch.optim.Adam(params, lr=self.learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8)
+        device = params[0].device
+        lr = torch.tensor(self.learning_rate, dtype=torch.float32,
+                          device=device)
+        adam = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                fused=True,
+                                capturable=device.type == "cuda")
+        # a fused update ignores ``capturable``, which only lets it be
+        # captured: running it eagerly costs nothing, so no warning
+        adam._warned_capturable_if_run_uncaptured = True
         steps = sorted({int(m) * steps_per_epoch
                         for m in self.learning_rate_milestones})
         schedule = torch.optim.lr_scheduler.MultiStepLR(adam, steps, gamma=0.1)

@@ -66,7 +66,8 @@ class CenterNetDetection(CenterNet):
     """Detection task; ``device=None`` means CUDA. ``test_scales``,
     ``test_flip``, ``test_max_per_image`` and ``tta_bucket`` (0: the
     reference's exact geometry) set up ``predict``'s TTA; ``dcn_radius`` and
-    ``dcn_radius_fine`` the DCN clamp (``CenterNet``)."""
+    ``dcn_radius_fine`` the DCN clamp, ``compiled`` the serving graphs
+    (``CenterNet``)."""
 
     valid_ids = COCO_VALID_IDS
 
@@ -81,7 +82,8 @@ class CenterNetDetection(CenterNet):
                  test_scales: Optional[Sequence[float]] = None,
                  test_flip: bool = False, test_max_per_image: int = 100,
                  tta_bucket: int = 128, dcn_radius: int = DEFAULT_RADIUS,
-                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE,
+                 compiled: Optional[bool] = None):
         self.num_classes = num_classes
         self.heads = {
             "heatmap": num_classes,
@@ -100,7 +102,7 @@ class CenterNetDetection(CenterNet):
                          learning_rate=learning_rate,
                          learning_rate_milestones=learning_rate_milestones,
                          dcn_radius=dcn_radius,
-                         dcn_radius_fine=dcn_radius_fine)
+                         dcn_radius_fine=dcn_radius_fine, compiled=compiled)
 
     def hparams(self):
         hp = super().hparams()
@@ -139,20 +141,14 @@ class CenterNetDetection(CenterNet):
         return loss, {"loss": loss, "hm_loss": hm_loss, "wh_loss": wh_loss,
                       "off_loss": off_loss}
 
-    @torch.inference_mode()
-    def infer_decode(self, images, valid_hw=None, flip: bool = False
-                     ) -> torch.Tensor:
-        """Forward the last stack + decode: NHWC images (uint8, or float
-        already normalised) -> [B, K, 6] on the task's device. ``valid_hw``
-        [B, 2] bounds the candidates to the un-padded region. With ``flip``
-        the batch is [image, mirrored image]: their heatmaps and sizes are
-        averaged (the mirror's flipped back) and [1, K, 6] decoded."""
-        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
-
     def decode_heads(self, out, valid_hw=None, flip: bool = False
                      ) -> torch.Tensor:
-        """``infer_decode`` after the forward: the last stack's NHWC head
-        maps -> [B, K, 6] (the serving export traces it)."""
+        """The last stack's NHWC head maps -> [B, K, 6] on the task's device
+        (``infer_decode`` is the forward and this; the serving export traces
+        it). ``valid_hw`` [B, 2] bounds the candidates to the un-padded
+        region. With ``flip`` the batch is [image, mirrored image]: their
+        heatmaps and sizes are averaged (the mirror's flipped back) and [1,
+        K, 6] decoded."""
         hm, wh, reg = out["heatmap"], out["width_height"], out["regression"]
         if flip:
             hm = (hm[0:1] + hm[1:2].flip(2)) / 2.0
@@ -208,8 +204,7 @@ class CenterNetDetection(CenterNet):
                 images = torch.cat([images, images.flip(2)], 0)
             valid = torch.tensor([meta["valid_hw"]], dtype=torch.int32,
                                  device=self.device)
-            det = to_numpy(self.infer_decode(images, valid,
-                                             flip=self.test_flip)[0])
+            det = to_numpy(self.infer_tta(images, valid, self.test_flip)[0])
             per_scale.append(self._unpad(det, meta))
         return self.merge_scales(per_scale)
 

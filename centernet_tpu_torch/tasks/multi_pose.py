@@ -42,7 +42,8 @@ FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 class CenterNetMultiPose(CenterNet):
     """Pose task; ``device=None`` means CUDA. ``test_scales``, ``test_flip``,
     ``test_max_per_image`` and ``tta_bucket`` set up ``predict``'s TTA,
-    ``dcn_radius`` and ``dcn_radius_fine`` the DCN clamp (``CenterNet``)."""
+    ``dcn_radius`` and ``dcn_radius_fine`` the DCN clamp, ``compiled`` the
+    serving graphs (``CenterNet``)."""
 
     max_objs = 128
     flip_idx = FLIP_IDX
@@ -58,7 +59,8 @@ class CenterNetMultiPose(CenterNet):
                  dtype: torch.dtype = torch.float32, device=None,
                  seed: int = 0, tta_bucket: int = 128,
                  dcn_radius: int = DEFAULT_RADIUS,
-                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE):
+                 dcn_radius_fine: int = DEFAULT_RADIUS_FINE,
+                 compiled: Optional[bool] = None):
         self.num_joints = num_joints
         self.heads = {
             "heatmap": 1,
@@ -82,7 +84,9 @@ class CenterNetMultiPose(CenterNet):
                          learning_rate=learning_rate,
                          learning_rate_milestones=learning_rate_milestones,
                          dcn_radius=dcn_radius,
-                         dcn_radius_fine=dcn_radius_fine)
+                         dcn_radius_fine=dcn_radius_fine, compiled=compiled)
+        # on the device once: a graph capture copies nothing from the host
+        self._flip_idx = torch.as_tensor(self.flip_idx, device=self.device)
 
     def hparams(self):
         hp = super().hparams()
@@ -147,13 +151,13 @@ class CenterNetMultiPose(CenterNet):
         """Average a [image, mirrored image] pair's NHWC head maps into one
         (the mirror's flipped back, its joints swapped and their x offsets
         negated; the sub-cell offsets from the image alone)."""
-        flip_idx = torch.as_tensor(self.flip_idx, device=out["keypoints"].device)
+        flip_idx = self._flip_idx.to(out["keypoints"].device)
         merged = {k: (out[k][0:1] + out[k][1:2].flip(2)) / 2.0
                   for k in ("heatmap", "width_height")}
         kps = out["keypoints"]
         _, h, w, c = kps.shape
         fk = kps[1:2].flip(2).reshape(1, h, w, c // 2, 2)
-        fk = fk * torch.tensor([-1.0, 1.0], device=fk.device)
+        fk = torch.stack((-fk[..., 0], fk[..., 1]), -1)
         fk = fk[:, :, :, flip_idx].reshape(1, h, w, c)
         merged["keypoints"] = (kps[0:1] + fk) / 2.0
         hm_kp = out["heatmap_keypoints"]
@@ -163,20 +167,14 @@ class CenterNetMultiPose(CenterNet):
             merged[k] = out[k][0:1]
         return merged
 
-    @torch.inference_mode()
-    def infer_decode(self, images, valid_hw=None, flip: bool = False
-                     ) -> torch.Tensor:
-        """Forward the last stack + pose decode: NHWC images (uint8, or float
-        already normalised) -> [B, K, 40 + J] on the task's device.
-        ``valid_hw`` [B, 2] bounds person and joint peaks to the un-padded
-        region. With ``flip`` the batch is [image, mirrored image] and [1, K,
-        40 + J] is decoded from their merged maps (``flip_merge``)."""
-        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
-
     def decode_heads(self, out, valid_hw=None, flip: bool = False
                      ) -> torch.Tensor:
-        """``infer_decode`` after the forward: the last stack's NHWC head
-        maps -> [B, K, 40 + J] (the serving export traces it)."""
+        """The last stack's NHWC head maps -> pose rows [B, K, 40 + J] on
+        the task's device (``infer_decode`` is the forward and this; the
+        serving export traces it). ``valid_hw`` [B, 2] bounds person and
+        joint peaks to the un-padded region. With ``flip`` the batch is
+        [image, mirrored image] and [1, K, 40 + J] is decoded from their
+        merged maps (``flip_merge``)."""
         if flip:
             out = self.flip_merge(out)
         return multi_pose_decode(
@@ -218,8 +216,7 @@ class CenterNetMultiPose(CenterNet):
                 images = torch.cat([images, images.flip(2)], 0)
             valid = torch.tensor([meta["valid_hw"]], dtype=torch.int32,
                                  device=self.device)
-            det = to_numpy(self.infer_decode(images, valid,
-                                             flip=self.test_flip)[0])
+            det = to_numpy(self.infer_tta(images, valid, self.test_flip)[0])
             detections.append(self._unpad(det, meta))
         results = np.concatenate(detections, axis=0)
         if len(self.test_scales) > 1:

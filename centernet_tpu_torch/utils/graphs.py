@@ -1,0 +1,182 @@
+"""Compiled steps: CUDA graphs, the port's counterpart of the JAX package's
+``jax.jit`` programs and their cache of one program per input signature.
+
+A ``GraphedCall`` runs a function of tensors (its body: a task's forward +
+decode, a train step, an eval step) as one captured CUDA graph per
+signature. The body is the same eager code, the hand-written DCN kernels
+included; ``torch.compile`` plays no part.
+
+* Signature (``signature``): the shape and dtype of each tensor argument
+  (or its absence, ``None``) and the static keyword arguments, such as
+  ``flip``. A new signature is a new graph, as a new shape is a new jit
+  program; callers keep the number of signatures bounded (``tta_bucket``).
+* The first call of a signature allocates the static input buffers on the
+  device, copies the arguments into them and runs the body eagerly on the
+  pool's side stream: the warm-up (cuDNN and cuBLAS state, the caching
+  allocator, the DCN kernels' shared-memory attribute, Adam's state). Its
+  result is returned: for a train step it is the trajectory's first step.
+* The second call copies its arguments into the buffers, captures the body
+  on the side stream into the pool's memory, and replays it. Later calls
+  copy and replay. A capture that fails raises; nothing falls back to the
+  eager body.
+* A replay runs no Python. ``before_replay`` (the cast-cache refresh of
+  ``ops.modules.cast_refresher``) runs before each capture and replay,
+  ``after_replay`` (a train step's ``mark_written``) after each replay, and
+  the launches of the hand-written kernels that the capture recorded are
+  added to ``ops.dcn_cuda.launch_counts`` per replay. The outputs are
+  cloned before they are returned, since the next replay overwrites them.
+
+The graphs of one task share its ``GraphPool``: one private memory pool and
+one side stream (a new pool once all the task's graphs are freed). Sharing
+is safe as the calls use it: a graph's outputs are cloned right after its
+replay, and nothing reads a graph's intermediates after it ends. A train
+graph's gradients (``p.grad``) live in the pool too: read them before
+another graph of the task replays.
+
+``resolve_compiled`` says whether a path runs as graphs: ``None`` means
+graphs on CUDA and eager on the CPU (the caller chose the CPU), ``True``
+on the CPU raises.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from ..ops import dcn_cuda
+
+
+def resolve_compiled(compiled: Optional[bool], device: torch.device) -> bool:
+    """Whether a path on ``device`` runs as CUDA graphs (see the module
+    docstring)."""
+    if compiled is None:
+        return device.type == "cuda"
+    if compiled and device.type != "cuda":
+        raise ValueError(f"compiled=True needs a CUDA device (CUDA graphs); "
+                         f"this path runs on {device}")
+    return bool(compiled)
+
+
+class GraphPool:
+    """What the graphs of one task share: a private memory pool and the side
+    stream they are warmed up and captured on."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.handle = None
+        self.graphs = weakref.WeakSet()  # the live graphs of the pool
+
+    def next_handle(self):
+        """The pool for the next capture. The allocator ends a private pool
+        when the last graph captured into it is freed and refuses to capture
+        into it again, so once every graph of the task is gone (the train
+        step of a finished ``fit``) a new pool begins."""
+        if not self.graphs:
+            self.handle = torch.cuda.graph_pool_handle()
+        return self.handle
+
+
+def signature(args: Sequence[Optional[torch.Tensor]],
+              static: Dict[str, Any]) -> tuple:
+    """The cache key of a call: each argument's shape and dtype (``None``
+    stays ``None``) and the static keyword arguments."""
+    return (tuple(None if t is None else (tuple(t.shape), t.dtype)
+                  for t in args),
+            tuple(sorted(static.items())))
+
+
+def _clone(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_clone(v) for v in out)
+    return out
+
+
+class _Entry:
+    """One signature: its static input buffers, and once captured, its
+    graph, static outputs and the kernel launches of one replay."""
+
+    def __init__(self, inputs):
+        self.inputs = inputs
+        self.graph = None
+        self.outputs = None
+        self.launches = None
+
+
+class GraphedCall:
+    """``body(*tensors, **static)`` as one CUDA graph per signature (see the
+    module docstring). Tensor arguments may be host arrays or tensors on
+    any device; they are copied into the signature's buffers on
+    ``pool.device``."""
+
+    def __init__(self, body: Callable, pool: GraphPool,
+                 before_replay: Optional[Callable[[], Any]] = None,
+                 after_replay: Optional[Callable[[], Any]] = None):
+        self.body = body
+        self.pool = pool
+        self.before_replay = before_replay
+        self.after_replay = after_replay
+        self.entries: Dict[tuple, _Entry] = {}
+
+    @property
+    def graphs(self) -> int:
+        """How many signatures have a captured graph."""
+        return sum(e.graph is not None for e in self.entries.values())
+
+    def __call__(self, *args, **static):
+        args = [None if a is None else torch.as_tensor(a) for a in args]
+        key = signature(args, static)
+        entry = self.entries.get(key)
+        fresh = entry is None
+        if fresh:
+            entry = _Entry([None if a is None else torch.empty(
+                a.shape, dtype=a.dtype, device=self.pool.device)
+                for a in args])
+        for buf, a in zip(entry.inputs, args):
+            if buf is not None:
+                buf.copy_(a)
+        if fresh:
+            out = self._warm_up(entry, static)
+            self.entries[key] = entry
+            return out
+        if entry.graph is None:
+            self._capture(entry, static)
+        return self._replay(entry)
+
+    def _warm_up(self, entry: _Entry, static):
+        current = torch.cuda.current_stream(self.pool.device)
+        side = self.pool.stream
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.body(*entry.inputs, **static)
+        current.wait_stream(side)
+        return out
+
+    def _capture(self, entry: _Entry, static) -> None:
+        if self.before_replay is not None:
+            self.before_replay()  # nothing stale is read, nor captured
+        graph = torch.cuda.CUDAGraph()
+        side = self.pool.stream
+        side.wait_stream(torch.cuda.current_stream(self.pool.device))
+        with dcn_cuda.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool.next_handle(),
+                                  stream=side):
+                out = self.body(*entry.inputs, **static)
+        entry.graph, entry.outputs = graph, out
+        entry.launches = launches.copy()
+        self.pool.graphs.add(graph)
+
+    def _replay(self, entry: _Entry):
+        if self.before_replay is not None:
+            self.before_replay()
+        entry.graph.replay()
+        dcn_cuda.count_replay(entry.launches)
+        if self.after_replay is not None:
+            self.after_replay()
+        return _clone(entry.outputs)

@@ -474,3 +474,39 @@ def test_an_unstageable_radius_raises_on_the_card(dev):
     with pytest.raises(ValueError, match="radius 127"):
         layer(x)
     assert dict(launch_counts) == before
+
+
+def test_a_task_captures_again_after_its_graphs_are_freed(dev):
+    """A train graph captured for one ``fit`` is freed with its step while
+    its gradients stay in the task's pool; the task's next capture (serving
+    after training, as a CLI does) starts a new pool instead of the freed
+    one, which the allocator refuses. Rows and launches as eager."""
+    import gc
+
+    import numpy as np
+
+    from centernet_tpu_torch.ops import dcn_cuda
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    task = CenterNetDetection("resdcn_18", dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3),
+                                           dtype=np.uint8)).to(dev)
+    boxes = np.zeros((2, 128, 4), np.float32)
+    boxes[:, :2] = [[10, 12, 20, 30], [30, 8, 14, 18]]
+    target = {"boxes": boxes, "classes": np.zeros((2, 128), np.int32),
+              "valid": (np.arange(128) < 2)[None].repeat(2, 0)}
+    step = make_train_step(task, task.configure_optimizer(1))
+    for _ in range(3):  # the eager warm-up, the capture, a replay
+        step(images, target)
+    del step
+    gc.collect()
+    assert not task.graph_pool.graphs
+    for _ in range(2):
+        task.infer_decode(images)
+    dcn_cuda.launch_counts.clear()
+    got = task.infer_decode(images)
+    assert dcn_cuda.launch_counts["dcn_fwd"] == 3
+    assert task.serving.graphs == 1
+    assert torch.equal(got, task.forward_decode(images))

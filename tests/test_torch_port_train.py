@@ -160,7 +160,7 @@ def test_adam_with_multistep_matches_optax():
     for g in grads:
         upd, jstate = jtx.update(jnp.asarray(g), jstate, jp)
         jp = optax.apply_updates(jp, upd)
-        lrs.append(opt.adam.param_groups[0]["lr"])
+        lrs.append(float(opt.adam.param_groups[0]["lr"]))  # a tensor
         opt.zero_grad()
         param.grad = torch.from_numpy(g.copy())
         opt.step()
