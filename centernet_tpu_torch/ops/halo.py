@@ -33,7 +33,13 @@ that band reads from the ranks that hold them (``on_band``):
 An op sees only its band, so the global height of its input is recorded
 per forward (``global_rows``): the first forward at an image size
 all-gathers the band heights at each op, in call order, and later forwards
-at that size replay the record without a collective.
+at that size replay the record without a collective. Every size that
+``fetch_rows``, ``exchange_halo`` and ``gather_rows`` compute then comes
+from the record, on the host, and ``all_gather`` only moves bytes: a
+replayed forward reads nothing from the device, so a CUDA graph can hold
+it (``parallel/spatial.py``). A forward that would gather band heights
+while a stream is being captured raises (``capturing``): the heights are
+read on the host, which a capture cannot do.
 
 ``fetch_rows`` moves only the rows some other rank reads (``sent_rows``:
 a rank's last rows that the ranks below it read, then its first rows that
@@ -52,9 +58,10 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, \
 import torch
 import torch.distributed as dist
 
-__all__ = ["RowMap", "SpatialAxis", "all_gather", "band", "current_axis",
-           "empty_rows", "exchange_halo", "fetch_rows", "gather_rows",
-           "global_rows", "on_band", "sent_rows", "sharded_rows"]
+__all__ = ["RowMap", "SpatialAxis", "all_gather", "band", "capturing",
+           "current_axis", "empty_rows", "exchange_halo", "fetch_rows",
+           "gather_rows", "global_rows", "on_band", "sent_rows",
+           "sharded_rows"]
 
 Rows = Tuple[int, int]  # global rows [start, stop)
 
@@ -104,11 +111,19 @@ def sharded_rows(axis: SpatialAxis, heights: Optional[List[int]] = None):
         _FORWARD = before
 
 
+def capturing(x: torch.Tensor) -> bool:
+    """Whether ``x``'s device has a CUDA graph capture under way on the
+    current stream."""
+    return x.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def global_rows(x: torch.Tensor) -> int:
     """The height of the whole map whose band on this rank is the NCHW
     ``x``: the forward's record at this call, or the sum of every rank's
-    band height (one all-gather), then recorded. Every rank of the axis
-    calls it at the same points of the forward."""
+    band height (one all-gather, read on the host), then recorded. Every
+    rank of the axis calls it at the same points of the forward. Gathering
+    during a CUDA graph capture raises: the record of an image size is
+    filled by an eager forward first."""
     fwd = _FORWARD
     axis = fwd.axis
     i, fwd.calls = fwd.calls, fwd.calls + 1
@@ -120,6 +135,12 @@ def global_rows(x: torch.Tensor) -> int:
                 f"a band of {x.shape[2]} rows where the record of this "
                 f"forward has {b - a} (of {rows}): the forward changed")
         return rows
+    if capturing(x):
+        raise RuntimeError(
+            f"global_rows: call {i} of a spatial forward has no recorded "
+            f"height, and gathering the band heights reads them on the host, "
+            f"which a CUDA graph capture cannot hold: run the forward at "
+            f"this image size eagerly first (its warm-up)")
     h = torch.tensor([x.shape[2]], dtype=torch.int64, device=x.device)
     heights = [int(t) for t in all_gather(h, axis.group)]
     rows = sum(heights)

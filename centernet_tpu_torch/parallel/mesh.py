@@ -20,7 +20,9 @@ is a ``DeviceMesh`` with the same axis names.
   ``data_group`` / ``model_group`` and ``data_rank_and_size`` /
   ``model_rank_and_size`` read its axes; ``is_main_process`` says whether
   this process prints, logs and writes files (the first global rank: on a
-  ``(1, M)`` mesh every rank has data index 0).
+  ``(1, M)`` mesh every rank has data index 0); ``capturable`` says
+  whether a CUDA graph can hold collectives over its groups (NCCL, not
+  gloo: ``utils/graphs.py::resolve_compiled``).
 * ``launch``: run a function in N fresh local processes, one per rank, and
   return what each returned (the CLIs' ``--num_devices``, ``entry.
   dryrun_multichip`` and the tests use it). The ranks meet through a file
@@ -121,6 +123,20 @@ def data_group(mesh):
 def model_group(mesh):
     """The process group of ``mesh``'s model axis, or None without a mesh."""
     return None if mesh is None else mesh.get_group("model")
+
+
+def backends(mesh) -> set:
+    """The backends of ``mesh``'s data and model groups (``dist.
+    get_backend``): ``{"nccl"}`` on CUDA ranks by default, ``{"gloo"}`` on
+    the CPU or where a caller asked for gloo."""
+    return {dist.get_backend(mesh.get_group(axis)) for axis in AXES}
+
+
+def capturable(mesh) -> bool:
+    """Whether a CUDA graph can hold the collectives over ``mesh``'s groups:
+    NCCL's can (they launch kernels on the device), gloo's cannot (they run
+    on the host)."""
+    return backends(mesh) == {"nccl"}
 
 
 def _rank_and_size(group) -> tuple:

@@ -19,16 +19,24 @@ row or be empty.
 share, gathers the last stack's head maps over the model axis
 (``ops/halo.py::gather_rows``) and decodes them with the task's own
 ``decode_heads``, so the NMS and the top-K are the single-device code.
+Over an NCCL mesh it runs as one CUDA graph per shape and dtype of the
+global batch (``utils/graphs.py``), the counterpart of the JAX package's
+jit of its spatial forward: the first call at a signature is eager and
+fills the record of the image size's band heights, the second captures
+the forward, halo exchanges included, and later calls replay it. Over
+gloo it stays eager.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from ..ops.halo import SpatialAxis, all_gather, band, gather_rows, \
     sharded_rows
+from ..ops.modules import cast_refresher
+from ..utils.graphs import GraphedCall, task_compiled
 from .mesh import data_group, data_rank_and_size, model_group, \
     model_rank_and_size
 
@@ -81,7 +89,8 @@ def make_spatial_heads(task, mesh) -> Callable:
     return fn
 
 
-def make_spatial_infer(task, mesh, flip: bool = False) -> Callable:
+def make_spatial_infer(task, mesh, flip: bool = False,
+                       compiled: Optional[bool] = None) -> Callable:
     """The task's forward + decode with the batch split over ``mesh``'s
     ``data`` axis and the image H axis over its ``model`` axis
     (``make_spatial_heads``).
@@ -90,7 +99,13 @@ def make_spatial_infer(task, mesh, flip: bool = False) -> Callable:
     on every rank, and every rank returns the whole batch's rows, equal to
     the task's ``infer_decode``. ``flip`` is ``infer_decode``'s flip TTA:
     images are [image, mirrored image], and with a data axis of 2 the pair's
-    maps meet on every rank before the merge."""
+    maps meet on every rank before the merge.
+
+    ``compiled`` (default: the task's, eager over a gloo mesh) runs it as
+    CUDA graphs on the task's ``graph_pool`` (the module docstring), the
+    eval casts refreshed before each replay; ``fn.body`` is the eager
+    forward + decode, the graph's body, and ``fn.graphed`` the
+    ``GraphedCall`` (None when eager)."""
     heads = make_spatial_heads(task, mesh)
     n_data = data_rank_and_size(mesh)[1]
     group = data_group(mesh)
@@ -106,4 +121,14 @@ def make_spatial_infer(task, mesh, flip: bool = False) -> Callable:
             return torch.cat(all_gather(dets, group)) if n_data > 1 \
                 else dets
 
-    return fn
+    if not task_compiled(task, compiled, mesh):
+        fn.body, fn.graphed = fn, None
+        return fn
+    graphed = GraphedCall(fn, task.graph_pool,
+                          before_replay=cast_refresher(task.model))
+
+    def infer(images):
+        return graphed(images)
+
+    infer.body, infer.graphed = fn, graphed
+    return infer

@@ -23,17 +23,20 @@ Evaluation takes each rank's share of the images (the caller strides the
 ids) and gathers the COCO rows of every rank, in rank order, before
 scoring.
 
-Compiled steps (``compiled``, the default on CUDA without a mesh): each step
-runs as one captured CUDA graph per signature (``utils/graphs.py``), the
-counterpart of the JAX trainer's ``jax.jit`` of both steps. The host arrays
-are copied into the graph's static buffers outside it; the normalisation,
-the target encoding, the forward, the loss, the backward of every
-micro-batch, the clip and the fused Adam update are inside. A train step's
-first call at a signature is its eager warm-up (a real step, which creates
-Adam's state), its second captures and replays; the learning-rate schedule
-is stepped on the host after each call. With a mesh the steps stay eager:
-a gloo collective cannot be captured (NCCL capture is ROADMAP A13's next
-step).
+Compiled steps (``compiled``, the default on CUDA): each step runs as one
+captured CUDA graph per signature (``utils/graphs.py``), the counterpart of
+the JAX trainer's ``jax.jit`` of both steps. The host arrays are copied
+into the graph's static buffers outside it; the normalisation, the target
+encoding, the forward, the loss, the backward of every micro-batch, the
+clip and the fused Adam update are inside. A train step's first call at a
+signature is its eager warm-up (a real step, which creates Adam's state
+and, over a mesh, NCCL's communicators), its second captures and replays;
+the learning-rate schedule is stepped on the host after each call. Over an
+NCCL mesh the graph holds every collective of the step: each BatchNorm
+layer's all-reduce (``global_statistics``), the loss normalisers'
+(``ops/losses.py::global_sum``), the gradients' and the stats'. Over a
+gloo mesh the steps stay eager: a gloo collective runs on the host and
+cannot be captured (``utils/graphs.py::resolve_compiled``).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import torch.distributed as dist
 
 from ..ops.modules import cast_refresher, global_statistics, mark_written
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
-from ..utils.graphs import GraphedCall, resolve_compiled
+from ..utils.graphs import GraphedCall, task_compiled
 from ..utils.logging import MetricsLogger
 from .mesh import data_group, data_rank_and_size, is_main_process
 
@@ -88,21 +91,6 @@ def broadcast_state(model: torch.nn.Module, group) -> None:
             dist.broadcast(t, src=src, group=group)
 
 
-def _steps_compiled(task, mesh, compiled: Optional[bool]) -> bool:
-    """Whether ``task``'s steps run as graphs: ``None`` follows the task
-    (``task.compiled``), eager under a mesh."""
-    if mesh is not None:
-        if compiled:
-            raise ValueError(
-                "compiled=True with a mesh: the data-parallel step's gloo "
-                "collectives cannot be captured in a CUDA graph; NCCL "
-                "capture is ROADMAP A13's next step (pass compiled=False)")
-        return False
-    if compiled is None:
-        return task.compiled
-    return resolve_compiled(compiled, task.device)
-
-
 def make_train_step(task, opt, accumulate_grad_batches: int = 1,
                     gradient_clip_val: Optional[float] = None,
                     mesh=None, compiled: Optional[bool] = None) -> Callable:
@@ -119,9 +107,9 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
     update sees the mean gradient. ``stats`` are the loss and its parts,
     averaged over the micro-batches, as 0-d tensors on the device.
 
-    ``compiled`` (default: the task's, eager with a mesh) runs the step as
-    CUDA graphs (the module docstring); ``step.update`` is the device work
-    of one step on device tensors, the graph's body.
+    ``compiled`` (default: the task's, eager over a gloo mesh) runs the step
+    as CUDA graphs (the module docstring); ``step.update`` is the device
+    work of one step on device tensors, the graph's body.
 
     With a ``mesh``, the step runs on every rank of its ``data`` axis, each
     with its contiguous slice of the global batch (whose size must divide
@@ -132,7 +120,7 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
     the gradients are summed over the ranks before the clip, and ``stats``
     are the global batch's on every rank.
     """
-    graphed = _steps_compiled(task, mesh, compiled)
+    graphed = task_compiled(task, compiled, mesh)
     k = accumulate_grad_batches
     params = [p for p in task.model.parameters() if p.requires_grad]
     group = data_group(mesh)
@@ -192,7 +180,7 @@ def make_eval_step(task, mesh=None, compiled: Optional[bool] = None
     a ``mesh``, those of the global batch whose slice each rank holds.
     ``compiled`` as ``make_train_step``'s; ``eval_step.update`` is the
     graph's body (the eval casts are refreshed before each replay)."""
-    graphed = _steps_compiled(task, mesh, compiled)
+    graphed = task_compiled(task, compiled, mesh)
     group = data_group(mesh)
 
     @torch.inference_mode()

@@ -9,17 +9,21 @@ StableHLO) are refused by name. The program holds the DCN layers as the
 operators ``centernet_tpu_torch::dcn_fwd`` (``ops/dcn_cuda.py``), so
 ``load_serving`` imports that module to register them: on the card a loaded
 program launches the hand-written kernel (and counts its launches), on the
-CPU the plain version.
+CPU the plain version. On the card the loaded program runs as one CUDA
+graph (``utils/graphs.py``), as the JAX package's loaded StableHLO runs as
+one compiled program.
 """
 
 from __future__ import annotations
 
 import io
 import os
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
+
+from .graphs import GraphedCall, GraphPool, resolve_compiled
 
 MAGIC = b"CNPTEX01"
 JAX_MAGIC = b"CNTPUEX1"
@@ -100,11 +104,20 @@ def export_serving(task, path: str, *, input_size: int = 512,
     return program
 
 
-def load_serving(path: str) -> Callable:
+def load_serving(path: str, compiled: Optional[bool] = None) -> Callable:
     """Load a serving artifact written by ``export_serving``; returns a
     callable ``images [B, S, S, 3] f32 -> detections`` on the device it was
-    exported on, with ``.info`` (``input_shape``, ``device``) and
-    ``.program`` (the ``ExportedProgram``). Another input shape raises."""
+    exported on, with ``.info`` (``input_shape``, ``device``), ``.program``
+    (the ``ExportedProgram``) and ``.graphed``. Another input shape raises.
+
+    ``compiled`` (``utils/graphs.py::resolve_compiled``; default: on a
+    program exported on CUDA) runs the program as a ``GraphedCall`` with a
+    ``GraphPool`` of its own, ``.graphed``: the first call is its eager
+    warm-up, the second captures it, later calls replay it (its DCN
+    launches counted per replay). The program's own Python, the pytree
+    flattening and the input checks, which read shapes alone, runs at the
+    warm-up and the capture, never at a replay. The weights are constants
+    of the program, so nothing is refreshed before a replay."""
     from ..ops import dcn_cuda  # noqa: F401  (registers the DCN operators)
 
     with open(path, "rb") as f:
@@ -123,15 +136,22 @@ def load_serving(path: str) -> Callable:
     shape, device = tuple(val.shape), val.device
     module = program.module()
 
+    @torch.no_grad()
+    def run(images: torch.Tensor) -> torch.Tensor:
+        return module(images)
+
+    graphed = (GraphedCall(run, GraphPool(device))
+               if resolve_compiled(compiled, device) else None)
+
     def call(images: torch.Tensor) -> torch.Tensor:
         if tuple(images.shape) != shape:
             raise ValueError(f"the serving program takes images of shape "
                              f"{shape}, got {tuple(images.shape)}")
-        with torch.no_grad():
-            return module(images)
+        return run(images) if graphed is None else graphed(images)
 
     call.info = {"input_shape": shape, "device": str(device)}
     call.program = program
+    call.graphed = graphed
     return call
 
 

@@ -18,7 +18,10 @@ included; ``torch.compile`` plays no part.
 * The second call copies its arguments into the buffers, captures the body
   on the side stream into the pool's memory, and replays it. Later calls
   copy and replay. A capture that fails raises; nothing falls back to the
-  eager body.
+  eager body. Python's cyclic garbage collector is off while a capture
+  runs: a collection there may free another graph (a dead task's, held in
+  a reference cycle), and destroying a graph during a capture invalidates
+  the capture.
 * A replay runs no Python. ``before_replay`` (the cast-cache refresh of
   ``ops.modules.cast_refresher``) runs before each capture and replay,
   ``after_replay`` (a train step's ``mark_written``) after each replay, and
@@ -35,28 +38,81 @@ another graph of the task replays.
 
 ``resolve_compiled`` says whether a path runs as graphs: ``None`` means
 graphs on CUDA and eager on the CPU (the caller chose the CPU), ``True``
-on the CPU raises.
+on the CPU raises. A path over a mesh (the data-parallel steps, the
+spatial forward) is also decided by its groups' backend
+(``parallel/mesh.py::capturable``): NCCL collectives can be captured, so
+``None`` means graphs; gloo's run on the host, so ``None`` means eager and
+``True`` raises.
+
+Capturing a collective. An NCCL collective is kernels on NCCL's own
+stream, which waits on the calling stream and is waited on by it, so a
+capture on the pool's side stream takes NCCL's stream in and holds the
+collective as graph nodes; a list all-gather's flat buffer and its copies
+out are kernels and allocations of the capture too. What it needs:
+
+* the communicator of every group the body uses exists before the
+  capture: NCCL creates it at a group's first collective, which the
+  eager warm-up makes (a communicator made inside a capture fails);
+* every rank captures and replays the same collectives in the same order
+  (the body is the same code on every rank, and a replay is the whole
+  graph), and no collective's size depends on a value read on the host
+  during the capture (``ops/halo.py::global_rows`` refuses to read one);
+* a replay is a launch of work that waits for every other rank's replay:
+  the ranks replay together, as they ran the eager step together.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
 from ..ops import dcn_cuda
+from ..parallel.mesh import backends, capturable
 
 
-def resolve_compiled(compiled: Optional[bool], device: torch.device) -> bool:
-    """Whether a path on ``device`` runs as CUDA graphs (see the module
-    docstring)."""
+def resolve_compiled(compiled: Optional[bool], device: torch.device,
+                     mesh=None) -> bool:
+    """Whether a path on ``device``, over ``mesh``'s groups if one is given,
+    runs as CUDA graphs (see the module docstring)."""
+    if mesh is not None and not capturable(mesh):
+        if compiled:
+            raise ValueError(
+                f"compiled=True with a mesh over {sorted(backends(mesh))}: "
+                f"a gloo collective runs on the host and cannot be captured "
+                f"in a CUDA graph (NCCL ones can); pass compiled=False")
+        return False
     if compiled is None:
         return device.type == "cuda"
     if compiled and device.type != "cuda":
         raise ValueError(f"compiled=True needs a CUDA device (CUDA graphs); "
                          f"this path runs on {device}")
     return bool(compiled)
+
+
+def task_compiled(task, compiled: Optional[bool], mesh=None) -> bool:
+    """``resolve_compiled`` for a path of ``task`` (a step, the spatial
+    forward): ``None`` follows the task (``task.compiled``), and over a
+    gloo mesh means eager."""
+    if compiled is None and not task.compiled:
+        return False
+    return resolve_compiled(compiled, task.device, mesh)
+
+
+@contextlib.contextmanager
+def no_collection():
+    """The cyclic garbage collector off inside the block (restored after):
+    no destructor of cyclic garbage runs in the middle of a capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class GraphPool:
@@ -164,7 +220,7 @@ class GraphedCall:
         graph = torch.cuda.CUDAGraph()
         side = self.pool.stream
         side.wait_stream(torch.cuda.current_stream(self.pool.device))
-        with dcn_cuda.recording_launches() as launches:
+        with dcn_cuda.recording_launches() as launches, no_collection():
             with torch.cuda.graph(graph, pool=self.pool.next_handle(),
                                   stream=side):
                 out = self.body(*entry.inputs, **static)

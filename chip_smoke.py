@@ -161,11 +161,34 @@ raises and the script exits non-zero without printing a result:
    ``--tta_bucket`` and at 0, the exact geometry, which captures none) and
    the same TTA image by image, graphed
    against eager; each path's time per call, host enqueue, device busy,
-   idle share, kernels and peak memory, eager against graphed.
+   idle share, kernels and peak memory, eager against graphed;
+15. the last eager paths as CUDA graphs: the dla_34 detection and pose
+   serving programs (512x512, bf16, B4, phase 12's seeded weights)
+   exported from graphed tasks and loaded in a fresh interpreter, each
+   with ``load_serving``'s default (a graph) and ``compiled=False``: the
+   graph's rows (a replay) against the eager program's and the live
+   graph's at 0 difference as sets, 16 ``dcn_fwd`` per replay, a B1 input
+   refused ahead of the graph; in one NCCL rank (a group of one: NCCL
+   takes no two ranks on one card), the dla_34 detection B4 bf16 train
+   step over the mesh graphed against eager by phase 14's rules (ten
+   steps within twice the eager spread, the one-step fused Adam check and
+   its control, 16 + 16 launches per replayed step), the collectives it
+   calls (by kind, counted at the Python level: with one rank a lost
+   collective would change no number) equal at the warm-up, the capture
+   and an eager step and none at a replay, the mesh eval step graphed
+   against eager at 0, an f32 B4 step graphed over the group against one
+   graphed without it (phase 12's NCCL_LOSS_RTOL), ``make_spatial_infer``
+   on the (1, 1) mesh at 512x512 and then 480x640 (a second graph)
+   against itself eager at 0 and the single-device forward by phase 13's
+   rule (``row_errors``), 16 ``dcn_fwd`` per replay; ``compiled=True`` over a gloo group refused
+   naming gloo, ``--num_devices 2`` and ``--spatial 2`` refused by name;
+   each path's times eager against graphed in phase 14's columns.
 
 Phases 4-8 and 10-13 build their tasks with ``compiled=False``: they run
 the eager path, whose numbers PRs 1-9 recorded, and phases 4, 10 and 11
 read DCN offsets on the host in module hooks, which a capture cannot hold.
+Phases 12 and 13's gloo ranks stay eager (a gloo collective runs on the
+host) and their NCCL group of one builds ``compiled=False`` tasks.
 The CLIs of phases 9-11, the train->AP gates (phase 11) and phase 13's
 training on the peak images take the default, graphs, and count their
 launches through ``launch_counts``, which a graph adds to at each replay;
@@ -177,9 +200,10 @@ CUDA-event time of the same call and dropped when they disagree (the
 profiler loses records late in a run).
 
 A watchdog ends a run that hangs after WATCHDOG_S seconds, with a
-traceback. On an H100 the whole script took 715.3 s, phase 14 144.9 s of
-it; before the gates and phase 13's training on the peak images replayed
-graphs, it took 773-844 s without phase 14, so no earlier phase was cut.
+traceback. On an H100 the whole script took 707.8 s, phase 14 140.4 s and
+phase 15 107.9 s of it (before phase 15: 623.8-715.3 s; before the gates
+and phase 13's training on the peak images replayed graphs, 773-844 s
+without phase 14), so no earlier phase was cut.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 """
@@ -2786,6 +2810,21 @@ def grad_errors(got, want, model, dcn_bias_bound=True):
     return worst[0], worst[1], (num / den) ** 0.5
 
 
+def refused_by_name(cli, args, flag):
+    """``cli(args)`` must refuse ``flag`` on the one card, naming it: its
+    message."""
+    try:
+        cli(args)
+    except SystemExit as exc:
+        msg = str(exc)
+    else:
+        raise RuntimeError(f"{cli.__module__} {flag} ran on one card")
+    if flag not in msg:
+        raise RuntimeError(f"refused without naming {flag}: {msg}")
+    print(f"{cli.__module__} {flag} refused: {msg}")
+    return msg
+
+
 def run_export_and_dp(dev, card):
     """Phase 12: the operators under opcheck, the serving export of dla_34
     detection and pose in a fresh interpreter, and data parallelism: two
@@ -2901,15 +2940,8 @@ def run_export_and_dp(dev, card):
         raise RuntimeError("the NCCL group's step disagrees")
     out["nccl_loss_err"] = err
 
-    try:
-        cli_main(["images", "annotations", "--num_devices", "2"])
-    except SystemExit as exc:
-        msg = str(exc)
-    else:
-        raise RuntimeError("cli.detection --num_devices 2 ran on one card")
-    if "--num_devices 2" not in msg:
-        raise RuntimeError(f"refused without naming the flag: {msg}")
-    print(f"cli.detection --num_devices 2 refused: {msg}")
+    refused_by_name(cli_main, ["images", "annotations", "--num_devices",
+                               "2"], "--num_devices 2")
     return out
 
 
@@ -3393,16 +3425,8 @@ def run_spatial(dev, card):
                                                      "heads_err": c_heads}
     out["kernel_rows"] = check_kernel_at_slabs(out["shapes"], dev)
     out["shapes"] = {str(s): n for s, n in out["shapes"].items()}
-    try:
-        cli_test(["detection", "images", "annotations", "--batched",
-                  "--spatial", "2"])
-    except SystemExit as exc:
-        msg = str(exc)
-    else:
-        raise RuntimeError("cli.test --spatial 2 ran on one card")
-    if "--spatial 2" not in msg:
-        raise RuntimeError(f"refused without naming the flag: {msg}")
-    print(f"cli.test --batched --spatial 2 refused: {msg}")
+    refused_by_name(cli_test, ["detection", "images", "annotations",
+                               "--batched", "--spatial", "2"], "--spatial 2")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 13: {out['seconds']:.1f} s [{card}]", flush=True)
     return out
@@ -3610,16 +3634,18 @@ def serve_graphs(cls, rng, batches, card):
     return out
 
 
-def train_record(task, images, target, compiled, k=1, clip=None):
-    """COMPILED_STEPS steps with a fresh optimizer from the task's weights:
-    per step the loss and the DCN launches, then the parameters, BatchNorm
-    buffers, Adam's moments and step counts, and the learning rate."""
+def train_record(task, images, target, compiled, k=1, clip=None, mesh=None):
+    """COMPILED_STEPS steps with a fresh optimizer from the task's weights
+    (over ``mesh``'s data axis if given): per step the loss and the DCN
+    launches, then the parameters, BatchNorm buffers, Adam's moments and
+    step counts, and the learning rate."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.parallel.trainer import make_train_step
 
     opt = task.configure_optimizer(1)
     step = make_train_step(task, opt, accumulate_grad_batches=k,
-                           gradient_clip_val=clip, compiled=compiled)
+                           gradient_clip_val=clip, mesh=mesh,
+                           compiled=compiled)
     losses, launches = [], []
     for _ in range(COMPILED_STEPS):
         dcn_cuda.launch_counts.clear()
@@ -3759,7 +3785,7 @@ def adam_errors(task, opt, start_state, lr):
 
 
 def one_step_checks(task, label, images, target, start_state, k=1,
-                    clip=None, update_rule=False):
+                    clip=None, update_rule=False, mesh=None):
     """One step from the start weights and a fresh Adam state at the rate of
     the schedule's first milestone (``to_milestone``): an eager step, and a
     replay of the captured step (warmed up and captured from the start
@@ -3770,12 +3796,14 @@ def one_step_checks(task, label, images, target, start_state, k=1,
     its update against the eager step's, under phase 7's rule where
     ``update_rule`` (f32), else printed: in bf16 Adam's first update turns
     noise-level gradients into full steps of either sign. Returns the
-    steps, the memory the capture added and the numbers."""
+    steps, the memory the capture added and the numbers. With ``mesh``,
+    both steps run over its data axis."""
     from centernet_tpu_torch.parallel.trainer import make_train_step
 
     opts = {c: task.configure_optimizer(1) for c in (False, True)}
     steps = {c: make_train_step(task, opts[c], accumulate_grad_batches=k,
-                                gradient_clip_val=clip, compiled=c)
+                                gradient_clip_val=clip, mesh=mesh,
+                                compiled=c)
              for c in (False, True)}
     task.model.load_state_dict(start_state)
     to_milestone(opts[False])
@@ -3840,7 +3868,7 @@ def one_step_checks(task, label, images, target, start_state, k=1,
 
 
 def train_graphs(task, label, images, target, card, k=1, clip=None,
-                 n_dcn=16):
+                 n_dcn=16, mesh=None):
     """Graphed against eager train steps of ``task`` (bf16) on one batch:
     COMPILED_EAGER eager runs and a graphed one from one state
     (``train_record``), each difference of the graphed run from the nearest
@@ -3848,7 +3876,7 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
     runs, where that bound is within its COMPILED_CAPS cap; ``n_dcn`` * K
     launches of each DCN kernel per step, replays included; the BatchNorm
     statistics advanced once per micro-batch; ``one_step_checks``; both
-    paths timed."""
+    paths timed. With ``mesh``, every step runs over its data axis."""
     from centernet_tpu_torch.ops.dcn import DCN
 
     start_state = {k_: v.clone() for k_, v in task.model.state_dict().items()}
@@ -3857,7 +3885,8 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
     runs = []
     for compiled in [False] * COMPILED_EAGER + [True]:
         task.model.load_state_dict(start_state)
-        runs.append(train_record(task, images, target, compiled, k, clip))
+        runs.append(train_record(task, images, target, compiled, k, clip,
+                                 mesh))
     *eager, g = runs
     # the DCN biases feed a train-mode BatchNorm: their gradient is 0 in
     # truth and Adam turns its rounding noise into full steps
@@ -3908,7 +3937,7 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
         raise RuntimeError(f"{label}: {g['graphs']} train graphs, want 1")
 
     steps, pool, same = one_step_checks(task, label, images, target,
-                                        start_state, k, clip)
+                                        start_state, k, clip, mesh=mesh)
     task.model.load_state_dict(start_state)
     times = eager_vs_graphed(label, lambda: steps[False](images, target),
                              lambda: steps[True](images, target), 10, card,
@@ -4066,6 +4095,444 @@ def run_compiled(dev, card, rng, coco):
     out["tta"] = tta_graphs(dev, card, coco)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------- phase 15 ---
+# The paths that PR 10 left eager, as CUDA graphs: the loaded serving
+# programs, the data-parallel steps over an NCCL group and the spatially
+# sharded forward over an NCCL mesh. NCCL takes no two ranks on one card, so
+# the groups here hold one rank: its collectives are captured and replayed,
+# but whether a captured collective across real ranks agrees cannot be
+# shown on this machine.
+
+# (b): an f32 B4 step over the NCCL group of one against no group, both
+# graphed: NCCL_LOSS_RTOL, phase 12's limit for the same pair eager.
+GRAPHED_MESH_B = 4
+# (c): the spatial forward's image sizes, the square one first
+GRAPHED_SPATIAL_HW = (SQUARE, COCO_HW)
+GRAPHED_SPATIAL_B = 4
+
+# 15(a): each loaded program in a fresh interpreter, eagerly and as a graph;
+# argv: (card, then (artifact, inputs, output file) for each program)
+SERVE_GRAPHED = """
+import sys
+import time
+import torch
+sys.path.insert(0, ".")
+from centernet_tpu_torch.utils.export import load_serving
+import chip_smoke as cs
+card = sys.argv[1]
+for i in range(2, len(sys.argv), 3):
+    path, inputs, out = sys.argv[i:i + 3]
+    t0 = time.perf_counter()
+    eager = load_serving(path, compiled=False)
+    call = load_serving(path)
+    print(f"{path.split('/')[-1]}: loaded twice in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    dcn = sys.modules["centernet_tpu_torch.ops.dcn_cuda"]
+    imgs = torch.load(inputs).to(call.info["device"])
+    rows = {"eager": eager(imgs).cpu()}
+    with cs.capture_memory() as grown:
+        for _ in range(2):  # the eager warm-up, then capture and replay
+            call(imgs)
+    dcn.launch_counts.clear()
+    rows["graphed"] = call(imgs).cpu()
+    torch.cuda.synchronize()
+    launches = {k: dcn.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    try:
+        call(imgs[:1])
+        wrong_shape = None
+    except ValueError as exc:
+        wrong_shape = str(exc)
+    times = cs.eager_vs_graphed(f"loaded {path.split('/')[-1]} B4",
+                                lambda: eager(imgs), lambda: call(imgs), 20,
+                                card, pool_gib=sum(grown))
+    torch.save({"rows": rows, "launches": launches, "times": times,
+                "wrong_shape": wrong_shape, "info": call.info,
+                "graphs": None if call.graphed is None
+                else call.graphed.graphs,
+                "eager_graphed": eager.graphed is not None,
+                "modules": sorted(m for m in sys.modules if m.split(".")[0]
+                                  in ("centernet_tpu_torch", "centernet_tpu",
+                                      "jax", "flax"))}, out)
+    del call, eager
+"""
+
+
+def rows_diff(a, b):
+    """max |a - b| of two blocks of decoded rows compared as sets
+    (``sorted_rows``): 0 where they are the same rows."""
+    a, b = sorted_rows(a), sorted_rows(b)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise RuntimeError(f"rows {a.shape} against {b.shape}")
+    return float(np.abs(a - b).max())
+
+
+def export_graphed(dev, kind, workdir):
+    """15(a), in this process, for ``kind``: phase 12's program (dla_34,
+    512x512, bf16, B4, phase 4's seeded weights) exported from a task that
+    serves as graphs, and the rows of its live graph (a replay) on the
+    inputs the loaded program gets."""
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+    from centernet_tpu_torch.tasks.multi_pose import CenterNetMultiPose
+    from centernet_tpu_torch.utils.export import export_serving
+
+    cls = CenterNetDetection if kind == "detection" else CenterNetMultiPose
+    task = cls("dla_34", dtype=torch.bfloat16, device=dev, seed=SEED)
+    seed_weights(task.model, SEED + 1)
+    rng = np.random.default_rng(SEED + 15)
+    imgs = task.prep_images(rng.integers(0, 256, (EXPORT_BATCH, HW, HW, 3),
+                                         dtype=np.uint8))
+    path = f"{workdir}/{kind}.pt2"
+    export_serving(task, path, input_size=HW, batch=EXPORT_BATCH)
+    for _ in range(3):  # warm-up, capture and replay, replay
+        live = task.infer_decode(imgs)
+    if task.serving.graphs != 1:
+        raise RuntimeError(f"{kind}: the live path captured "
+                           f"{task.serving.graphs} graphs")
+    torch.save(imgs.cpu(), f"{workdir}/{kind}_inputs.pt")
+    return {"rows": live.cpu(),
+            "args": [path, f"{workdir}/{kind}_inputs.pt",
+                     f"{workdir}/{kind}_out.pt"]}
+
+
+def check_loaded_graphs(kind, live, got):
+    """15(a): the loaded program as a graph (a replay) against the same
+    program eager and against the live graph, rows as sets at 0; 16
+    dcn_fwd per replay and no dcn_bwd; a wrong shape refused ahead of the
+    graph; one graph, and none for ``compiled=False``."""
+    print(f"{kind}: {got['info']}; launches per replay {got['launches']}; "
+          f"graphs {got['graphs']}")
+    if got["launches"] != {"dcn_fwd": 16, "dcn_bwd": 0}:
+        raise RuntimeError(f"{kind}: the loaded graph's launches per replay "
+                           f"{got['launches']}, not 16 dcn_fwd alone")
+    if got["graphs"] != 1 or got["eager_graphed"]:
+        raise RuntimeError(f"{kind}: graphs {got['graphs']}, compiled=False "
+                           f"graphed {got['eager_graphed']}")
+    if got["wrong_shape"] is None:
+        raise RuntimeError(f"{kind}: a B1 input to the B4 graph did not "
+                           f"raise")
+    print(f"{kind}: a B1 input raised: {got['wrong_shape']}")
+    diffs = {"graphed_vs_eager": rows_diff(got["rows"]["graphed"],
+                                           got["rows"]["eager"]),
+             "graphed_vs_live_graph": rows_diff(got["rows"]["graphed"],
+                                                live["rows"])}
+    print(f"{kind}: loaded graph's rows against the loaded program eager "
+          f"{diffs['graphed_vs_eager']:.3e}, against the live graph "
+          f"{diffs['graphed_vs_live_graph']:.3e} (max |difference|, rows "
+          f"as sets; must be 0)")
+    if any(diffs.values()):
+        raise RuntimeError(f"{kind}: the loaded graph's rows differ: {diffs}")
+    return {"rows_diff": diffs, "launches_per_replay": got["launches"],
+            "times": got["times"]}
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """While active, the ``torch.distributed`` collectives a step calls
+    (``all_reduce``, ``all_gather``, ``broadcast``; also those of
+    ``torch.distributed.nn.functional``, which calls them) are counted by
+    kind. A replay calls none: it replays what its capture recorded."""
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    originals = {n: getattr(dist, n)
+                 for n in ("all_reduce", "all_gather", "broadcast")}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for name in originals:
+        setattr(dist, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def mesh_collectives(task, mesh, images, target):
+    """15(b): the collectives of the mesh train step at its warm-up, at its
+    capture (the second call; its replay calls none), at a replay, and in
+    an eager step, by kind; the warm-up, the capture and the eager step
+    must issue the same, and the replay none."""
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+
+    start = {k: v.clone() for k, v in task.model.state_dict().items()}
+    out = {}
+    for name, compiled, calls in (("graphed", True, 3), ("eager", False, 1)):
+        task.model.load_state_dict(start)
+        step = make_train_step(task, task.configure_optimizer(1), mesh=mesh,
+                               compiled=compiled)
+        for i in range(calls):
+            with counting_collectives() as counts:
+                step(images, target)
+            label = name if not compiled else ("warm-up", "capture",
+                                               "replay")[i]
+            out[label] = dict(counts)
+    task.model.load_state_dict(start)
+    print(f"  collectives per call: {out}", flush=True)
+    if not out["warm-up"] or out["replay"] or not (
+            out["warm-up"] == out["capture"] == out["eager"]):
+        raise RuntimeError(f"the mesh step's collectives differ: {out}")
+    return out
+
+
+def mesh_eval_graphed(task, mesh, images, target):
+    """15(b): the mesh eval step as a graph (a replay) against the eager one
+    on the same batch: every stat at 0 difference."""
+    from centernet_tpu_torch.parallel.trainer import make_eval_step
+
+    graphed = make_eval_step(task, mesh=mesh)
+    eager = make_eval_step(task, mesh=mesh, compiled=False)
+    for _ in range(3):
+        got = {k: float(v) for k, v in graphed(images, target).items()}
+    want = {k: float(v) for k, v in eager(images, target).items()}
+    diff = max(abs(got[k] - want[k]) for k in want)
+    print(f"  eval step graphed (a replay) vs eager: max |difference| "
+          f"{diff:.3e} over {sorted(want)} (must be 0); graphs "
+          f"{graphed.graphed.graphs}", flush=True)
+    if diff or graphed.graphed.graphs != 1:
+        raise RuntimeError("the mesh eval step's graph disagrees")
+    return {"diff": diff, "stats": want}
+
+
+def f32_mesh_against_no_group(mesh):
+    """15(b): one f32 B4 step, graphed, over the NCCL group of one and
+    without a group, from the same weights (TF32 off): the loss of a replay
+    from the start weights; phase 12's limit for the same pair eager."""
+    from centernet_tpu_torch.parallel.trainer import make_train_step
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    images, target = train_batch(np.random.default_rng(SEED + 151),
+                                 GRAPHED_MESH_B)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    losses = {}
+    try:
+        for name, m in (("no group", None), ("nccl group of 1", mesh)):
+            task = CenterNetDetection("dla_34", dtype=torch.float32,
+                                      device=DEVICE, seed=SEED)
+            seed_weights(task.model, SEED + 1)
+            start = {k: v.clone() for k, v in task.model.state_dict().items()}
+            step = make_train_step(task, task.configure_optimizer(1), mesh=m)
+            if step.graphed is None:
+                raise RuntimeError(f"{name}: the f32 step is not graphed")
+            for _ in range(2):
+                step(images, target)
+            task.model.load_state_dict(start)
+            losses[name] = float(step(images, target)["loss"])
+            del task, step
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    a, b = losses["no group"], losses["nccl group of 1"]
+    err = abs(b / a - 1)
+    print(f"  f32 B{GRAPHED_MESH_B} step replayed from the start weights: "
+          f"NCCL group of 1 loss {b:.7f}, no group {a:.7f}: {err:.3e} "
+          f"relative (tol {NCCL_LOSS_RTOL})", flush=True)
+    if err > NCCL_LOSS_RTOL:
+        raise RuntimeError("the graphed NCCL step disagrees with no group")
+    return {"losses": losses, "rel_err": err}
+
+
+def spatial_graphs(task, mesh, card):
+    """15(c): ``make_spatial_infer`` on the NCCL (1, 1) mesh as graphs (the
+    default) against itself eager (rows as sets at 0) and against the
+    single-device eager forward, at each GRAPHED_SPATIAL_HW in turn (the
+    second size a second graph); 16 dcn_fwd per replay; both paths timed.
+    Against the single device the rows are held by phase 13's rule
+    (``row_errors`` at phase 4's tolerances, no row unmatched), as phase 13
+    holds the gloo ranks' rows: the halo path runs each conv unpadded
+    along H on an explicitly padded map, where cuDNN may take another
+    algorithm, and on seeded weights a bf16 rounding then moves a row
+    among near-tied scores (a row 10 cells away on the card)."""
+    from centernet_tpu_torch.ops import dcn_cuda
+    from centernet_tpu_torch.parallel.spatial import make_spatial_infer
+
+    graphed = make_spatial_infer(task, mesh)
+    eager = make_spatial_infer(task, mesh, compiled=False)
+    if graphed.graphed is None or eager.graphed is not None:
+        raise RuntimeError("the NCCL spatial path does not resolve to graphs")
+    rng = np.random.default_rng(SEED + 152)
+    out = {}
+    for n, hw in enumerate(GRAPHED_SPATIAL_HW, 1):
+        label = f"spatial (1, 1) dla_34 B{GRAPHED_SPATIAL_B} {hw[0]}x{hw[1]}"
+        imgs = torch.from_numpy(rng.integers(
+            0, 256, (GRAPHED_SPATIAL_B, *hw, 3), dtype=np.uint8)).to(DEVICE)
+        with capture_memory() as grown:
+            for _ in range(2):  # warm-up (fills the record), capture
+                graphed(imgs)
+        dcn_cuda.launch_counts.clear()
+        rows = graphed(imgs)
+        torch.cuda.synchronize()
+        launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd",
+                                                           "dcn_bwd")}
+        one = task.forward_decode(imgs)
+        diffs = {"graphed_vs_eager": rows_diff(rows, eager(imgs)),
+                 "graphed_vs_single_device": rows_diff(rows, one)}
+        box_err, score_err, counts = row_errors(
+            rows.float().cpu().numpy(), one.float().cpu().numpy(), BOX_TOL,
+            SCORE_TOL)
+        print(f"{label}: graphed (a replay) vs eager spatial "
+              f"{diffs['graphed_vs_eager']:.3e} (max |difference|, rows as "
+              f"sets; must be 0); vs the single-device forward "
+              f"{diffs['graphed_vs_single_device']:.3e}, by phase 13's rule "
+              f"box {box_err:.3e} cells (tol {BOX_TOL}), score "
+              f"{score_err:.3e} (tol {SCORE_TOL}), rows {counts}; launches "
+              f"per replay {launches}; graphs {graphed.graphed.graphs}",
+              flush=True)
+        if diffs["graphed_vs_eager"]:
+            raise RuntimeError(f"{label}: graphed rows differ from eager")
+        if counts["unmatched"]:
+            raise RuntimeError(f"{label}: rows unmatched against the single "
+                               f"device: {counts}")
+        if launches != {"dcn_fwd": 16, "dcn_bwd": 0}:
+            raise RuntimeError(f"{label}: {launches} per replay")
+        if graphed.graphed.graphs != n:
+            raise RuntimeError(f"{label}: {graphed.graphed.graphs} graphs, "
+                               f"want {n}")
+        out[f"{hw[0]}x{hw[1]}"] = {
+            "rows_diff": diffs, "single_device": {
+                "box_err": box_err, "score_err": score_err, **counts},
+            "launches_per_replay": launches,
+            "times": eager_vs_graphed(label, lambda: eager(imgs),
+                                      lambda: graphed(imgs), 20, card,
+                                      pool_gib=sum(grown))}
+    return out
+
+
+def gloo_refusals(task):
+    """15(d): ``compiled=True`` over a gloo group raises naming gloo, for
+    both steps and the spatial path (a mesh whose groups are one gloo group
+    of this process)."""
+    import types
+
+    import torch.distributed as dist
+
+    from centernet_tpu_torch.parallel.spatial import make_spatial_infer
+    from centernet_tpu_torch.parallel.trainer import (make_eval_step,
+                                                      make_train_step)
+
+    group = dist.new_group(backend="gloo")
+    mesh = types.SimpleNamespace(get_group=lambda axis: group)
+    out = {}
+    for name, fn in (
+            ("train", lambda: make_train_step(
+                task, task.configure_optimizer(1), mesh=mesh,
+                compiled=True)),
+            ("eval", lambda: make_eval_step(task, mesh=mesh, compiled=True)),
+            ("spatial", lambda: make_spatial_infer(task, mesh,
+                                                   compiled=True))):
+        try:
+            fn()
+        except ValueError as exc:
+            out[name] = str(exc)
+        else:
+            raise RuntimeError(f"{name}: compiled=True over gloo ran")
+        if "gloo" not in out[name]:
+            raise RuntimeError(f"{name}: refused without naming gloo: "
+                               f"{out[name]}")
+    print(f"  compiled=True over a gloo group refused: {out['train']}")
+    dist.destroy_process_group(group)
+    return out
+
+
+def nccl_graphs_rank(card):
+    """15(b)-(d), in one NCCL rank on cuda:0 (a group of one): the dla_34
+    detection B4 bf16 mesh train step graphed against eager by phase 14's
+    rules (``train_graphs``) and its collectives, the mesh eval step, the
+    f32 step against no group, ``make_spatial_infer`` on the (1, 1) mesh,
+    and the refusals over gloo."""
+    import torch.distributed as dist
+
+    from centernet_tpu_torch.parallel.mesh import backends, make_mesh
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 1, device_type="cuda")
+    out = {"backends": sorted(backends(mesh)), "backend": dist.get_backend()}
+    rng = np.random.default_rng(SEED + 150)
+    task = CenterNetDetection("dla_34", dtype=torch.bfloat16, device=DEVICE,
+                              seed=SEED, learning_rate=COMPILED_LR,
+                              learning_rate_milestones=[COMPILED_MILESTONE])
+    seed_weights(task.model, SEED + 1)
+    images, target = train_batch(rng, GRAPHED_MESH_B)
+    label = f"mesh (NCCL group of 1) dla_34 train B{GRAPHED_MESH_B}"
+    out["train"] = train_graphs(task, label, images, target, card, mesh=mesh)
+    out["seconds"] = {"train": time.perf_counter() - t0}
+    out["collectives"] = mesh_collectives(task, mesh, images, target)
+    out["eval"] = mesh_eval_graphed(task, mesh, images, target)
+    out["refusals"] = gloo_refusals(task)
+    del task
+    torch.cuda.empty_cache()
+    out["f32"] = f32_mesh_against_no_group(mesh)
+    torch.cuda.empty_cache()
+    out["seconds"]["eval_f32_refusals"] = (time.perf_counter() - t0
+                                           - out["seconds"]["train"])
+    t1 = time.perf_counter()
+    task = CenterNetDetection("dla_34", dtype=torch.bfloat16, device=DEVICE,
+                              seed=SEED)
+    seed_weights(task.model, SEED + 1)
+    out["spatial"] = spatial_graphs(task, mesh, card)
+    out["seconds"]["spatial"] = time.perf_counter() - t1
+    return out
+
+
+def run_graphed_paths(dev, card):
+    """Phase 15: the loaded serving programs, the NCCL mesh steps and the
+    NCCL spatial forward as graphs against their eager runs (see the
+    module docstring)."""
+    from centernet_tpu_torch.cli.detection import cli_main
+    from centernet_tpu_torch.cli.test import cli_test
+    from centernet_tpu_torch.parallel.mesh import launch
+
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphed_") as workdir:
+        live = {kind: export_graphed(dev, kind, workdir)
+                for kind in ("detection", "multi_pose")}
+        torch.cuda.empty_cache()
+        out["seconds"]["export"] = time.perf_counter() - t_phase
+        res = subprocess.run(
+            [sys.executable, "-c", SERVE_GRAPHED, card,
+             *[a for e in live.values() for a in e["args"]]],
+            capture_output=True, text=True, timeout=600)
+        print(res.stdout, end="")
+        if res.returncode != 0:
+            raise RuntimeError(f"the fresh interpreter failed:\n{res.stderr}")
+        got = {kind: torch.load(e["args"][2], weights_only=False)
+               for kind, e in live.items()}
+    modules = got["detection"]["modules"]
+    if any(not m.startswith("centernet_tpu_torch") or
+           m.startswith("centernet_tpu_torch.tasks") for m in modules):
+        raise RuntimeError(f"the serving process imported {modules}")
+    out["loaded"] = {kind: check_loaded_graphs(kind, live[kind], got[kind])
+                     for kind in live}
+    torch.cuda.empty_cache()
+    out["seconds"]["loaded"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    out["nccl"] = launch(nccl_graphs_rank, 1, card, device_type="cuda")[0]
+    out["seconds"]["nccl_rank"] = time.perf_counter() - t0
+    print(f"NCCL rank: backends {out['nccl']['backends']}; seconds "
+          f"{out['nccl']['seconds']} of {out['seconds']['nccl_rank']:.1f}")
+    out["refused"] = {
+        "--num_devices 2": refused_by_name(
+            cli_main, ["images", "annotations", "--num_devices", "2"],
+            "--num_devices 2"),
+        "--spatial 2": refused_by_name(
+            cli_test, ["detection", "images", "annotations", "--batched",
+                       "--spatial", "2"], "--spatial 2")}
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"phase 15: {out['seconds']['phase']:.1f} s ({out['seconds']}) "
+          f"[{card}]", flush=True)
     return out
 
 
@@ -4299,6 +4766,14 @@ def main() -> int:
           "--multi_scale, as CUDA graphs against their eager runs")
     comp = run_compiled(dev, card, rng, cli["coco"])
     coco_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    phase("15 the last eager paths as CUDA graphs: the loaded dla_34 "
+          "detection and pose programs (B4 512² bf16) in a fresh "
+          "interpreter; an NCCL group of one: the dla_34 mesh train and "
+          "eval steps, an f32 step against no group, make_spatial_infer on "
+          "a (1, 1) mesh at 512x512 and 480x640; the refusals")
+    gp = run_graphed_paths(dev, card)
 
     def summary(name, src, tpu, kernel_rows, launches_by_path, ms,
                 more_rows):
@@ -4360,7 +4835,18 @@ def main() -> int:
                 "graphed_serve_per_replay":
                     comp["serve"]["B4"]["launches_per_replay"][name],
                 "graphed_train_per_step": comp["train"]["B4"][
-                    "launches_per_step"][name == "dcn_bwd"]}
+                    "launches_per_step"][name == "dcn_bwd"],
+                # phase 15: per replay of each loaded program's graph, per
+                # replayed step of the NCCL mesh train graph, per replay of
+                # the NCCL spatial graph at each size
+                **{f"graphed_loaded_{kind}_per_replay":
+                   gp["loaded"][kind]["launches_per_replay"][name]
+                   for kind in ("detection", "multi_pose")},
+                "graphed_mesh_train_per_step": gp["nccl"]["train"][
+                    "launches_per_step"][name == "dcn_bwd"],
+                **{f"graphed_spatial_{hw}_per_replay":
+                   r["launches_per_replay"][name]
+                   for hw, r in gp["nccl"]["spatial"].items()}}
 
     kernels = [
         summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
@@ -4403,6 +4889,7 @@ def main() -> int:
     print(json.dumps({"spatial": {k: v for k, v in sp.items()
                                   if k != "kernel_rows"}}))
     print(json.dumps({"compiled": comp}))
+    print(json.dumps({"graphed_paths": gp}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):
         bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
         print(f"{name} bf16, ms per shape as (lead, no lead, earlier design "

@@ -510,3 +510,59 @@ def test_a_task_captures_again_after_its_graphs_are_freed(dev):
     assert dcn_cuda.launch_counts["dcn_fwd"] == 3
     assert task.serving.graphs == 1
     assert torch.equal(got, task.forward_decode(images))
+
+
+def _dead_task_then_capture(dev, images):
+    """A serving graph's warm-up; then a task whose serving graph was
+    captured dies in a reference cycle, as the train->AP gates' tasks do,
+    after a full collection it survived (so only the next full one frees
+    it); then the capture, whose body collects wherever the collector is
+    on, as an automatic collection may. Returns the served task, the rows
+    of its capture and a weak reference to the dead task."""
+    import gc
+    import weakref
+
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    task = CenterNetDetection("resdcn_18", dtype=torch.bfloat16, device=dev)
+    body = task.serving.body
+
+    def collecting(*args, **static):
+        if gc.isenabled():
+            gc.collect()
+        return body(*args, **static)
+
+    task.serving.body = collecting
+    task.infer_decode(images)  # the warm-up
+    dead = CenterNetDetection("resdcn_18", dtype=torch.bfloat16, device=dev,
+                              seed=1)
+    for _ in range(2):
+        dead.infer_decode(images)
+    assert dead.serving.graphs == 1
+    cycle = [dead]
+    cycle.append(cycle)
+    probe = weakref.ref(dead)
+    gc.collect()
+    del dead, cycle
+    assert probe() is not None
+    return task, task.infer_decode(images), probe
+
+
+def test_a_capture_holds_while_a_dead_task_awaits_the_collector(dev):
+    """The cyclic collector is off while a graph is captured: a collection
+    there would destroy the dead task's graph in the middle of the capture.
+    The dead task outlives the capture and goes at the next collection; the
+    rows are eager's."""
+    import gc
+
+    import numpy as np
+
+    images = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 64, 64, 3), dtype=np.uint8)).to(dev)
+    task, got, probe = _dead_task_then_capture(dev, images)
+    assert probe() is not None
+    gc.collect()
+    assert probe() is None
+    assert task.serving.graphs == 1
+    assert torch.equal(got, task.forward_decode(images))
+    assert torch.equal(task.infer_decode(images), got)

@@ -10,13 +10,18 @@ can be checked of CUDA graphs without a card.
 * The restructured step (fused Adam, a tensor learning rate, the schedule
   stepped outside the body) against the JAX package's jitted
   ``make_train_step`` over 4 steps across a milestone.
-* The cast cache's in-place refresh; the refusals of ``compiled=True``; a
-  checkpoint of the port's earlier unfused Adam resuming; the graph cache's
-  keys and the launch accounting of a capture and its replays; TTA through
-  the graphs only where ``tta_bucket`` bounds its shapes.
+* The cast cache's in-place refresh; the refusals of ``compiled=True`` (on
+  the CPU, over a gloo mesh, of a CPU serving artifact) and an NCCL mesh's
+  resolution to graphs on CUDA; a checkpoint of the port's earlier unfused
+  Adam resuming; the graph cache's keys, the launch accounting of a
+  capture and its replays, the garbage collector off during a capture; TTA through the graphs only where
+  ``tta_bucket`` bounds its shapes.
 """
 
+import contextlib
+import gc
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -47,7 +52,7 @@ from centernet_tpu_torch.tasks.multi_pose import CenterNetMultiPose  # noqa: E40
 from centernet_tpu_torch.utils.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
 from centernet_tpu_torch.utils.graphs import (  # noqa: E402
-    GraphedCall, resolve_compiled, signature)
+    GraphedCall, _Entry, resolve_compiled, signature)
 from centernet_tpu_torch.utils.jax_import import (  # noqa: E402
     jax_state_dict, load_jax_variables)
 
@@ -320,9 +325,26 @@ def test_cast_refresh_keeps_the_storage():
 
 # --------------------------------------------------------- (d) the refusals ---
 
-def test_compiled_refusals():
-    """``compiled=True`` raises on a CPU task and with a mesh (gloo
-    collectives cannot be captured); ``None`` means eager on the CPU."""
+class _Mesh:
+    """A mesh stub whose groups report ``backend`` (through ``dist.
+    get_backend``, patched by the test): no process group is made."""
+
+    def __init__(self, backend):
+        self.backend = backend
+
+    def get_group(self, axis):
+        return self
+
+
+def test_compiled_refusals(monkeypatch, tmp_path):
+    """``compiled=True`` raises on a CPU task and over a gloo mesh (its
+    collectives run on the host), and a CPU serving artifact's
+    ``load_serving(..., compiled=True)`` raises; ``None`` means eager on the
+    CPU and over gloo, and graphs on CUDA over NCCL."""
+    from centernet_tpu_torch.parallel import mesh as mesh_lib
+    from centernet_tpu_torch.utils.export import (export_serving,
+                                                  load_serving)
+
     assert resolve_compiled(None, torch.device("cpu")) is False
     assert resolve_compiled(None, torch.device("cuda")) is True
     assert resolve_compiled(False, torch.device("cuda")) is False
@@ -334,12 +356,31 @@ def test_compiled_refusals():
         make_train_step(task, task.configure_optimizer(1), compiled=True)
     with pytest.raises(ValueError, match="needs a CUDA device"):
         make_eval_step(task, compiled=True)
-    mesh = types.SimpleNamespace()  # refused before the mesh is read
-    with pytest.raises(ValueError, match="ROADMAP A13"):
-        make_train_step(task, task.configure_optimizer(1), mesh=mesh,
+
+    monkeypatch.setattr(mesh_lib.dist, "get_backend", lambda g: g.backend)
+    gloo, nccl = _Mesh("gloo"), _Mesh("nccl")
+    assert not mesh_lib.capturable(gloo) and mesh_lib.capturable(nccl)
+    with pytest.raises(ValueError, match="gloo"):
+        make_train_step(task, task.configure_optimizer(1), mesh=gloo,
                         compiled=True)
-    with pytest.raises(ValueError, match="ROADMAP A13"):
-        make_eval_step(task, mesh=mesh, compiled=True)
+    with pytest.raises(ValueError, match="gloo"):
+        make_eval_step(task, mesh=gloo, compiled=True)
+    with pytest.raises(ValueError, match="gloo"):
+        resolve_compiled(True, torch.device("cuda"), gloo)
+    assert resolve_compiled(None, torch.device("cuda"), gloo) is False
+    # an NCCL group on CUDA can be captured: graphs by default
+    assert resolve_compiled(None, torch.device("cuda"), nccl) is True
+    assert resolve_compiled(True, torch.device("cuda"), nccl) is True
+    assert resolve_compiled(False, torch.device("cuda"), nccl) is False
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        resolve_compiled(True, torch.device("cpu"), nccl)
+
+    small = CenterNetDetection("res_18", device="cpu", seed=1)
+    path = str(tmp_path / "serve.pt2")
+    export_serving(small, path, input_size=HW, batch=1)
+    assert load_serving(path).graphed is None
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        load_serving(path, compiled=True)
 
 
 # ---------------------------------------- (e) the earlier checkpoint format ---
@@ -506,6 +547,46 @@ def test_capture_counts_launches_per_replay():
     dcn_cuda._count("dcn_fwd")  # an eager launch
     assert dict(dcn_cuda.launch_counts) == {"dcn_fwd": 49, "dcn_bwd": 3}
     dcn_cuda.launch_counts.clear()
+
+
+@pytest.mark.parametrize("raises", [False, True])
+def test_no_collection_during_a_capture(monkeypatch, raises):
+    """``GraphedCall._capture`` runs the body with the cyclic garbage
+    collector off (a collection there could destroy a dead task's graph,
+    which invalidates the capture) and turns it on again after, also when
+    the body raises; a collector the caller turned off stays off. The
+    capture's CUDA calls are stubbed (a CPU has no graphs)."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", type("Graph", (), {}))
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    pool = types.SimpleNamespace(
+        device=torch.device("cpu"), graphs=weakref.WeakSet(),
+        stream=types.SimpleNamespace(wait_stream=lambda stream: None),
+        next_handle=lambda: None)
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        if raises:
+            raise RuntimeError("the body failed")
+        return x + 1
+
+    call = GraphedCall(body, pool)
+    entry = _Entry([torch.zeros(2)])
+    for enabled in (True, False):
+        (gc.enable if enabled else gc.disable)()
+        try:
+            if raises:
+                with pytest.raises(RuntimeError, match="the body failed"):
+                    call._capture(entry, {})
+            else:
+                call._capture(entry, {})
+                assert torch.equal(entry.outputs, torch.ones(2))
+            assert gc.isenabled() == enabled
+        finally:
+            gc.enable()
+    assert seen == [False, False]
 
 
 @pytest.mark.parametrize("cls", [CenterNetDetection, CenterNetMultiPose])
