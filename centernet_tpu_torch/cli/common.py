@@ -58,7 +58,9 @@ def add_trainer_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--precision", default="bf16", choices=list(DTYPES))
     parser.add_argument("--profile", action="store_true",
                         help="write a torch.profiler Chrome trace of the fit "
-                        "to <default_root_dir>/profile/trace.json")
+                        "to <default_root_dir>/profile/trace.json and the "
+                        "graphed layers' device times to "
+                        "profile/device_spans.json")
     parser.add_argument("--skip_test", action="store_true",
                         help="skip the post-fit TTA test + COCO eval pass "
                         "(train-only run; evaluate later with cli.test)")

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.dcn import DeformConvBNAct
 from ..ops.modules import BatchNorm2d, Conv2d
+from ..utils.profiling import span
 from .layers import BilinearConvTranspose, ConvBNAct, max_pool2d
 
 
@@ -234,7 +235,9 @@ class DLASeg(nn.Module):
                             dtype=dtype)
 
     def forward(self, x) -> List[torch.Tensor]:
-        feats = self.base(x)
-        pyramid = self.dla_up(feats)
-        y = self.ida_up(pyramid[:self.last_level - self.first_level])
+        with span("backbone"):
+            feats = self.base(x)
+        with span("neck"):
+            pyramid = self.dla_up(feats)
+            y = self.ida_up(pyramid[:self.last_level - self.first_level])
         return [y[-1]]

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.modules import BatchNorm2d, Conv2d
+from ..utils.profiling import span
 from .layers import upsample_nearest_2x
 
 
@@ -148,13 +149,14 @@ class HourglassNet(nn.Module):
                                     for _ in range(num_stacks - 1))
 
     def forward(self, x) -> List[torch.Tensor]:
-        inter = self.pre(x)
-        outs = []
-        for ind in range(self.num_stacks):
-            cnv = self.cnvs[ind](self.kps[ind](inter))
-            outs.append(cnv)
-            if ind < self.num_stacks - 1:
-                inter = F.relu(self.inters_[ind](inter)
-                               + self.cnvs_[ind](cnv))
-                inter = self.inters[ind](inter)
-        return outs
+        with span("backbone"):
+            inter = self.pre(x)
+            outs = []
+            for ind in range(self.num_stacks):
+                cnv = self.cnvs[ind](self.kps[ind](inter))
+                outs.append(cnv)
+                if ind < self.num_stacks - 1:
+                    inter = F.relu(self.inters_[ind](inter)
+                                   + self.cnvs_[ind](cnv))
+                    inter = self.inters[ind](inter)
+            return outs

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.modules import BatchNorm2d, Conv2d
+from ..utils.profiling import span
 from .layers import ConvTransposeBNAct, max_pool2d
 
 
@@ -142,4 +143,5 @@ class PoseResNet(ResNetStages):
             for m in ConvTransposeBNAct(chans[i], chans[i + 1], dtype=dtype)))
 
     def forward(self, x) -> List[torch.Tensor]:
-        return [self.deconv_layers(self.trunk(x))]
+        with span("backbone"):
+            return [self.deconv_layers(self.trunk(x))]

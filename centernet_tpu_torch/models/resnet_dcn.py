@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.dcn import DCN
 from ..ops.modules import BatchNorm2d
+from ..utils.profiling import span
 from .layers import ConvTranspose2x
 from .resnet import RESNET_SPEC, ResNetStages
 
@@ -44,4 +45,5 @@ class PoseResNetDCN(ResNetStages):
         self.deconv_layers = nn.Sequential(*mods)
 
     def forward(self, x) -> List[torch.Tensor]:
-        return [self.deconv_layers(self.trunk(x))]
+        with span("backbone"):
+            return [self.deconv_layers(self.trunk(x))]

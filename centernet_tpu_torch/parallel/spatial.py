@@ -125,7 +125,8 @@ def make_spatial_infer(task, mesh, flip: bool = False,
         fn.body, fn.graphed = fn, None
         return fn
     graphed = GraphedCall(fn, task.graph_pool,
-                          before_replay=cast_refresher(task.model))
+                          before_replay=cast_refresher(task.model),
+                          name="spatial")
 
     def infer(images):
         return graphed(images)

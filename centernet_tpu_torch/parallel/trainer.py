@@ -55,6 +55,7 @@ from ..ops.modules import cast_refresher, global_statistics, mark_written
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.graphs import GraphedCall, task_compiled
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import span
 from .mesh import data_group, data_rank_and_size, is_main_process
 
 
@@ -128,37 +129,46 @@ def make_train_step(task, opt, accumulate_grad_batches: int = 1,
         broadcast_state(task.model, group)
 
     def update(images, *target_values, names) -> Dict[str, torch.Tensor]:
-        img, target = _to_device(task, images, dict(zip(names, target_values)))
+        with span("targets"):
+            img, target = _to_device(task, images,
+                                     dict(zip(names, target_values)))
         stats: Dict[str, torch.Tensor] = {}
         task.train()
         try:
             opt.zero_grad()
             with global_statistics(task.model, group):
                 for j in range(k):
-                    loss, parts = task.loss(
-                        task.heads_nhwc(img[j::k]),
-                        {name: v[j::k] for name, v in target.items()}, group)
-                    (loss / k).backward()
-                    for name, v in parts.items():
-                        stats[name] = stats.get(name, 0.0) + v.detach() / k
-            if group is not None:
-                _all_reduce_grads(params, group)
-            if gradient_clip_val:
-                torch.nn.utils.clip_grad_norm_(params, gradient_clip_val)
-            opt.update()
+                    with span("forward"):
+                        out = task.heads_nhwc(img[j::k])
+                    with span("loss"):
+                        loss, parts = task.loss(
+                            out, {name: v[j::k] for name, v in target.items()},
+                            group)
+                        for name, v in parts.items():
+                            stats[name] = stats.get(name, 0.0) + v.detach() / k
+                    with span("backward"):
+                        (loss / k).backward()
+            with span("update"):
+                if group is not None:
+                    _all_reduce_grads(params, group)
+                if gradient_clip_val:
+                    torch.nn.utils.clip_grad_norm_(params, gradient_clip_val)
+                opt.update()
         finally:
             task.eval()
         return _all_reduced_stats(stats, group)
 
     run = update if not graphed else GraphedCall(
-        update, task.graph_pool, after_replay=lambda: mark_written(params))
+        update, task.graph_pool, after_replay=lambda: mark_written(params),
+        name="train")
 
     def step(images, target) -> Dict[str, torch.Tensor]:
         if images.shape[0] % k:
             raise ValueError(f"batch size {images.shape[0]} must divide by "
                              f"accumulate_grad_batches={k}")
         stats = run(images, *target.values(), names=tuple(target))
-        opt.step_schedule()
+        with span("train.schedule"):
+            opt.step_schedule()
         return stats
 
     step.update = update
@@ -190,7 +200,8 @@ def make_eval_step(task, mesh=None, compiled: Optional[bool] = None
         return _all_reduced_stats(stats, group)
 
     run = update if not graphed else GraphedCall(
-        update, task.graph_pool, before_replay=cast_refresher(task.model))
+        update, task.graph_pool, before_replay=cast_refresher(task.model),
+        name="eval")
 
     @torch.inference_mode()
     def eval_step(images, target) -> Dict[str, torch.Tensor]:

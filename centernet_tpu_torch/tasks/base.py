@@ -42,6 +42,7 @@ from ..models.layers import init_parameters
 from ..ops.dcn import DCN, DEFAULT_RADIUS, DEFAULT_RADIUS_FINE
 from ..ops.modules import cast_refresher, frozen_statistics, mark_written
 from ..utils.graphs import GraphedCall, GraphPool, resolve_compiled
+from ..utils.profiling import span
 
 
 def arch_head_conv(arch: str) -> int:
@@ -137,7 +138,8 @@ class CenterNetModel(nn.Module):
                                     frozen_statistics(self.backbone)))
         else:
             feats = self.backbone(x)
-        return [head(f) for head, f in zip(self.heads, feats)]
+        with span("heads"):
+            return [head(f) for head, f in zip(self.heads, feats)]
 
 
 class Optimizer:
@@ -246,7 +248,7 @@ class CenterNet:
                            if self.device.type == "cuda" else None)
         self.serving = None if not self.compiled else GraphedCall(
             self.forward_decode, self.graph_pool,
-            before_replay=cast_refresher(self.model))
+            before_replay=cast_refresher(self.model), name="serve")
 
     def hparams(self) -> Dict[str, Any]:
         """What rebuilds this task from a checkpoint alone (``tasks.
@@ -300,8 +302,13 @@ class CenterNet:
     def forward_decode(self, images, valid_hw=None, flip: bool = False
                        ) -> torch.Tensor:
         """``infer_decode`` eagerly: the last stack's heads, decoded (the
-        body of the serving graphs)."""
-        return self.decode_heads(self.apply(images)[-1], valid_hw, flip)
+        body of the serving graphs), in the spans ``prep`` (which also casts
+        to the compute dtype), the model's and ``decode``."""
+        with span("prep"):
+            x = self.prep_images(images).to(self.dtype)
+        out = self.heads_nhwc(x)[-1]
+        with span("decode"):
+            return self.decode_heads(out, valid_hw, flip)
 
     @torch.inference_mode()
     def infer_decode(self, images, valid_hw=None, flip: bool = False
@@ -380,17 +387,43 @@ class CenterNet:
         centernet_detection.py:317-341), so that images batch. ``img_hwc`` is
         BGR float in [0, 1]. Returns (image [size, size, 3] normalised, on the
         task's device; meta for undoing: ``scale``, ``padding``)."""
-        h, w = img_hwc.shape[:2]
-        scale = size / max(h, w)
-        new_h, new_w = round(h * scale), round(w * scale)
-        img = resize_bilinear(self.host_image(img_hwc), (new_h, new_w))
-        pad_t = (size - new_h) // 2
-        pad_l = (size - new_w) // 2
-        img = torch.nn.functional.pad(
-            img, (0, 0, pad_l, size - new_w - pad_l, pad_t,
-                  size - new_h - pad_t))
-        meta = {"scale": [new_w / w, new_h / h], "padding": [pad_l, pad_t]}
-        return self.normalize(img), meta
+        with span("serve.prepare"):
+            h, w = img_hwc.shape[:2]
+            scale = size / max(h, w)
+            new_h, new_w = round(h * scale), round(w * scale)
+            img = resize_bilinear(self.host_image(img_hwc), (new_h, new_w))
+            pad_t = (size - new_h) // 2
+            pad_l = (size - new_w) // 2
+            img = torch.nn.functional.pad(
+                img, (0, 0, pad_l, size - new_w - pad_l, pad_t,
+                      size - new_h - pad_t))
+            meta = {"scale": [new_w / w, new_h / h],
+                    "padding": [pad_l, pad_t]}
+            return self.normalize(img), meta
+
+    def predict_batch(self, images, metas: Sequence[dict], infer_fn=None
+                      ) -> list:
+        """Batched single-scale inference: one device round trip for the
+        batch, then per image its rows in the original image's coordinates
+        (``_unpad``; ``meta``: ``scale``, ``padding`` and optionally
+        ``valid_hw``). ``infer_fn(images) -> [B, K, C]`` replaces
+        ``infer_decode`` (the spatially sharded one of ``parallel.spatial.
+        make_spatial_infer``; it masks no region)."""
+        if infer_fn is not None:
+            out = infer_fn(images)
+        else:
+            full = [images.shape[1] // self.down_ratio,
+                    images.shape[2] // self.down_ratio]
+            valid = torch.as_tensor([m.get("valid_hw", full) for m in metas],
+                                    dtype=torch.int32)
+            out = self.infer_decode(images, valid.to(self.device))
+        with span("serve.readback"):
+            dets = to_numpy(out)
+        with span("serve.unpad"):
+            return [self._unpad(det, meta) for det, meta in zip(dets, metas)]
+
+    def _unpad(self, det: np.ndarray, meta: dict):
+        raise NotImplementedError
 
     @staticmethod
     def _mask_valid_region(hm_sig: torch.Tensor,

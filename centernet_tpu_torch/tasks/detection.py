@@ -229,24 +229,6 @@ class CenterNetDetection(CenterNet):
                 results[j] = results[j][results[j][:, 4] >= thresh]
         return results
 
-    def predict_batch(self, images, metas: Sequence[dict], infer_fn=None
-                      ) -> List[Dict[int, np.ndarray]]:
-        """Batched single-scale inference: one device round trip for the
-        batch, then per image {class_1based: [n, 5] xyxy + score} in the
-        original image's coordinates (``meta``: ``scale``, ``padding`` and
-        optionally ``valid_hw``). ``infer_fn(images) -> [B, K, 6]`` replaces
-        ``infer_decode`` (the spatially sharded one of ``parallel.spatial.
-        make_spatial_infer``; it masks no region)."""
-        if infer_fn is not None:
-            dets = to_numpy(infer_fn(images))
-        else:
-            full = [images.shape[1] // self.down_ratio,
-                    images.shape[2] // self.down_ratio]
-            valid = torch.as_tensor([m.get("valid_hw", full) for m in metas],
-                                    dtype=torch.int32)
-            dets = to_numpy(self.infer_decode(images, valid.to(self.device)))
-        return [self._unpad(det, meta) for det, meta in zip(dets, metas)]
-
     def to_coco_format(self, image_id, results: Dict[int, np.ndarray]
                        ) -> List[dict]:
         """Per-class xyxy detections -> COCO result dicts."""

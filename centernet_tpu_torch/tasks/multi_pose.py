@@ -229,24 +229,6 @@ class CenterNetMultiPose(CenterNet):
             results = results[results[:, 4] >= thresh]
         return results
 
-    def predict_batch(self, images, metas: Sequence[dict], infer_fn=None
-                      ) -> List[np.ndarray]:
-        """Batched single-scale inference: one device round trip for the
-        batch, then per image [K, 57] rows in the original image's
-        coordinates (``meta``: ``scale``, ``padding`` and optionally
-        ``valid_hw``). ``infer_fn(images) -> [B, K, 40 + J]`` replaces
-        ``infer_decode`` (the spatially sharded one of ``parallel.spatial.
-        make_spatial_infer``; it masks no region)."""
-        if infer_fn is not None:
-            dets = to_numpy(infer_fn(images))
-        else:
-            full = [images.shape[1] // self.down_ratio,
-                    images.shape[2] // self.down_ratio]
-            valid = torch.as_tensor([m.get("valid_hw", full) for m in metas],
-                                    dtype=torch.int32)
-            dets = to_numpy(self.infer_decode(images, valid.to(self.device)))
-        return [self._unpad(det, meta) for det, meta in zip(dets, metas)]
-
     def to_coco_format(self, image_id, results: np.ndarray) -> List[dict]:
         """[n, 57] rows -> COCO keypoint result dicts (category 1, every
         joint's visibility 1; centernet_multi_pose.py:270-296)."""

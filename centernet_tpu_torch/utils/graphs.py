@@ -28,6 +28,14 @@ included; ``torch.compile`` plays no part.
   the launches of the hand-written kernels that the capture recorded are
   added to ``ops.dcn_cuda.launch_counts`` per replay. The outputs are
   cloned before they are returned, since the next replay overwrites them.
+* Tracing (``utils/profiling.py``): each call is a span ``graphs.call``
+  whose argument is the call's ordinal, holding ``graphs.copy_in`` (the
+  copies into the buffers), ``graphs.warm_up``, ``graphs.capture``,
+  ``graphs.refresh`` (``before_replay``), ``graphs.replay`` (the launch),
+  ``graphs.after_replay`` and ``graphs.clone``. The body's own spans are
+  captured as timing events, and while a profiler records, the previous
+  replay's times are read into ``profiling.device_spans`` under the
+  call's ``name`` just before the next launch.
 
 The graphs of one task share its ``GraphPool``: one private memory pool and
 one side stream (a new pool once all the task's graphs are freed). Sharing
@@ -65,6 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import weakref
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -72,6 +81,9 @@ import torch
 
 from ..ops import dcn_cuda
 from ..parallel.mesh import backends, capturable
+from .profiling import capturing, device_spans, recording, span
+
+_calls = itertools.count(1)  # the ordinal of every graphed call
 
 
 def resolve_compiled(compiled: Optional[bool], device: torch.device,
@@ -156,28 +168,35 @@ def _clone(out):
 
 class _Entry:
     """One signature: its static input buffers, and once captured, its
-    graph, static outputs and the kernel launches of one replay."""
+    graph, static outputs, the kernel launches of one replay, the timing
+    events of its spans and the ordinal of the call that last replayed
+    it."""
 
     def __init__(self, inputs):
         self.inputs = inputs
         self.graph = None
         self.outputs = None
         self.launches = None
+        self.marks = ()
+        self.replayed = None
 
 
 class GraphedCall:
     """``body(*tensors, **static)`` as one CUDA graph per signature (see the
     module docstring). Tensor arguments may be host arrays or tensors on
     any device; they are copied into the signature's buffers on
-    ``pool.device``."""
+    ``pool.device``. ``name`` keys the device readings of the body's
+    spans."""
 
     def __init__(self, body: Callable, pool: GraphPool,
                  before_replay: Optional[Callable[[], Any]] = None,
-                 after_replay: Optional[Callable[[], Any]] = None):
+                 after_replay: Optional[Callable[[], Any]] = None,
+                 name: str = "graph"):
         self.body = body
         self.pool = pool
         self.before_replay = before_replay
         self.after_replay = after_replay
+        self.name = name
         self.entries: Dict[tuple, _Entry] = {}
 
     @property
@@ -186,6 +205,11 @@ class GraphedCall:
         return sum(e.graph is not None for e in self.entries.values())
 
     def __call__(self, *args, **static):
+        call = next(_calls)
+        with span("graphs.call", call):
+            return self._call(call, args, static)
+
+    def _call(self, call: int, args, static):
         args = [None if a is None else torch.as_tensor(a) for a in args]
         key = signature(args, static)
         entry = self.entries.get(key)
@@ -194,16 +218,21 @@ class GraphedCall:
             entry = _Entry([None if a is None else torch.empty(
                 a.shape, dtype=a.dtype, device=self.pool.device)
                 for a in args])
-        for buf, a in zip(entry.inputs, args):
-            if buf is not None:
-                buf.copy_(a)
+        with span("graphs.copy_in"):
+            for buf, a in zip(entry.inputs, args):
+                if buf is not None:
+                    buf.copy_(a)
         if fresh:
-            out = self._warm_up(entry, static)
+            with span("graphs.warm_up"):
+                out = self._warm_up(entry, static)
             self.entries[key] = entry
             return out
         if entry.graph is None:
-            self._capture(entry, static)
-        return self._replay(entry)
+            with span("graphs.capture"):
+                self._capture(entry, static)
+        out = self._replay(entry)
+        entry.replayed = call
+        return out
 
     def _warm_up(self, entry: _Entry, static):
         current = torch.cuda.current_stream(self.pool.device)
@@ -221,18 +250,25 @@ class GraphedCall:
         side = self.pool.stream
         side.wait_stream(torch.cuda.current_stream(self.pool.device))
         with dcn_cuda.recording_launches() as launches, no_collection():
-            with torch.cuda.graph(graph, pool=self.pool.next_handle(),
-                                  stream=side):
+            with capturing() as marks, torch.cuda.graph(
+                    graph, pool=self.pool.next_handle(), stream=side):
                 out = self.body(*entry.inputs, **static)
         entry.graph, entry.outputs = graph, out
         entry.launches = launches.copy()
+        entry.marks = tuple(marks)
         self.pool.graphs.add(graph)
 
     def _replay(self, entry: _Entry):
         if self.before_replay is not None:
-            self.before_replay()
-        entry.graph.replay()
+            with span("graphs.refresh"):
+                self.before_replay()
+        if entry.marks and entry.replayed is not None and recording():
+            device_spans.read(self.name, entry.marks, entry.replayed)
+        with span("graphs.replay"):
+            entry.graph.replay()
         dcn_cuda.count_replay(entry.launches)
         if self.after_replay is not None:
-            self.after_replay()
-        return _clone(entry.outputs)
+            with span("graphs.after_replay"):
+                self.after_replay()
+        with span("graphs.clone"):
+            return _clone(entry.outputs)

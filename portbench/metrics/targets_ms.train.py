@@ -1,0 +1,11 @@
+"""targets_ms.train: the device time of the train step graph's ``targets``
+span (the normalisation and the target encoding), from the program's
+readings of its replays under the traced stretch: the median ms a replay."""
+
+from portbench.metrics._spans import device_ms
+
+KEY = "train/targets"
+
+
+def read(r):
+    return device_ms(r, KEY) if r.kind == "train" else None
