@@ -11,6 +11,7 @@ spatial sharding (``ops/halo.py``), as ``ops/modules.py::Conv2d`` does.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -18,20 +19,20 @@ from torch import nn
 
 from ..ops.modules import BatchNorm2d, CastCache, Conv2d
 from ..ops import halo
+from ..ops.upsample import up_dw
 
 
-def conv_transpose(x: torch.Tensor, w: torch.Tensor,
-                   m: nn.ConvTranspose2d) -> torch.Tensor:
-    """``F.conv_transpose2d`` of ``x`` with ``w`` and ``m``'s geometry (no
-    bias); this rank's band under spatial sharding."""
+def conv_transpose(x: torch.Tensor, m: nn.ConvTranspose2d,
+                   op: Callable) -> torch.Tensor:
+    """``op(x, padding, output_padding)``, a transpose conv with ``m``'s
+    kernel and stride, at ``m``'s paddings; under spatial sharding this
+    rank's band: ``op`` on the band's rows with halo, unpadded along H."""
     if halo.current_axis() is None:
-        return F.conv_transpose2d(x, w, None, m.stride, m.padding,
-                                  m.output_padding, m.groups, m.dilation)
+        return op(x, m.padding, m.output_padding)
     rows = halo.RowMap("transpose", m.kernel_size[0], m.stride[0],
                        m.padding[0], m.output_padding[0])
-    return halo.on_band(x, rows, 0.0, lambda e: F.conv_transpose2d(
-        e, w, None, m.stride, (0, m.padding[1]), (0, m.output_padding[1]),
-        m.groups, m.dilation))
+    return halo.on_band(x, rows, 0.0, lambda e: op(
+        e, (0, m.padding[1]), (0, m.output_padding[1])))
 
 
 def max_pool2d(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
@@ -74,7 +75,9 @@ class BilinearConvTranspose(CastCache, nn.ConvTranspose2d):
     """Depthwise ConvTranspose2d(k=2f, stride=f, padding=f//2) with a
     bilinear init, trainable as in the JAX package. PyTorch flips the kernel
     that the JAX lhs-dilated conv applies unflipped; ``utils.jax_import``
-    flips it on import."""
+    flips it on import. Computed by ``ops/upsample.py::up_dw`` (the
+    hand-written kernels on the card, the plain version on the CPU); under
+    spatial sharding on this rank's band, with no padding along H."""
 
     def __init__(self, channels: int, stride: int,
                  dtype: torch.dtype = torch.float32):
@@ -85,7 +88,11 @@ class BilinearConvTranspose(CastCache, nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return conv_transpose(x.to(dt), self.param_as("weight", dt), self)
+        w = self.param_as("weight", dt)
+        # (an empty band's rows of fill come in NCHW memory)
+        return conv_transpose(x.to(dt), self, lambda e, pad, _: up_dw(
+            e.contiguous(memory_format=torch.channels_last), w,
+            self.stride[0], *pad))
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -112,7 +119,10 @@ class ConvTranspose2x(CastCache, nn.ConvTranspose2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return conv_transpose(x.to(dt), self.param_as("weight", dt), self)
+        w = self.param_as("weight", dt)
+        return conv_transpose(x.to(dt), self, lambda e, pad, out_pad: (
+            F.conv_transpose2d(e, w, None, self.stride, pad, out_pad,
+                               self.groups, self.dilation)))
 
     @torch.no_grad()
     def init_parameters(self, generator: torch.Generator) -> None:

@@ -1,10 +1,13 @@
-"""Build, binding and launch wrappers of the CUDA DCNv2 kernels.
+"""Build, binding and launch wrappers of the CUDA DCNv2 kernels, and the
+build and launch counter of every hand-written kernel of the port.
 
 ``csrc/dcn_fwd.cu`` replaces the TPU kernel
 ``centernet_tpu/ops/dcn_pallas.py::_fwd_kernel`` and ``csrc/dcn_bwd.cu``
-replaces ``_bwd_kernel``. At first use both sources are compiled with
-``nvcc`` for ``sm_90a`` (one process per source, side by side) and linked
-into one shared library with a plain C interface, cached under
+replaces ``_bwd_kernel``; ``csrc/upsample_dw.cu`` holds the depthwise
+transposed convolution of DLA's up path (its wrappers are
+``ops/upsample.py``). At first use the sources are compiled with ``nvcc``
+for ``sm_90a`` (one process per source, side by side) and linked into one
+shared library with a plain C interface, cached under
 ``centernet_tpu_torch/_build/`` by a hash of the sources and flags, and
 loaded with ``ctypes``. Nothing here runs when the module is imported, so
 hosts without ``nvcc`` or a GPU can import it.
@@ -14,9 +17,10 @@ hosts without ``nvcc`` or a GPU can import it.
 memory); the wrappers hand its numbers to the C functions as ints, and the
 C side refuses a plan whose sizes it does not arrive at itself.
 
-``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` grow by one at
-every call that launches the kernel and nowhere else, so a run can show that
-its path went through the kernels. While a CUDA graph is captured
+``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` (and
+``"up_dw_fwd"``, ``"up_dw_bwd"``, counted by ``ops/upsample.py``) grow by
+one at every call that launches the kernel and nowhere else, so a run can
+show that its path went through the kernels. While a CUDA graph is captured
 (``recording_launches``), a call records its kernel into the graph and
 launches nothing: it is counted in the capture's record instead, and the
 graph adds that record to ``launch_counts`` at each replay
@@ -45,7 +49,8 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "dcn_fwd.cu", _PKG / "csrc" / "dcn_bwd.cu")
+SOURCES = (_PKG / "csrc" / "dcn_fwd.cu", _PKG / "csrc" / "dcn_bwd.cu",
+           _PKG / "csrc" / "upsample_dw.cu")
 HEADERS = (_PKG / "csrc" / "dcn_hopper.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -138,6 +143,10 @@ def _load():
             lib.dcn_fwd.restype = ci
             lib.dcn_bwd.argtypes = [vp] * 10 + [ci] * 12 + [vp]
             lib.dcn_bwd.restype = ci
+            lib.up_dw_fwd.argtypes = [vp] * 3 + [ci] * 9 + [vp]
+            lib.up_dw_fwd.restype = ci
+            lib.up_dw_bwd.argtypes = [vp] * 6 + [ci] * 10 + [vp]
+            lib.up_dw_bwd.restype = ci
             lib.dcn_error_string.argtypes = [ci]
             lib.dcn_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -6,12 +6,13 @@ and runs without the model's Python classes.
 Format: one file, an 8-byte magic ``b"CNPTEX01"`` and then the bytes of
 ``torch.export.save``. The JAX package's artifacts (magic ``CNTPUEX1``,
 StableHLO) are refused by name. The program holds the DCN layers as the
-operators ``centernet_tpu_torch::dcn_fwd`` (``ops/dcn_cuda.py``), so
-``load_serving`` imports that module to register them: on the card a loaded
-program launches the hand-written kernel (and counts its launches), on the
-CPU the plain version. On the card the loaded program runs as one CUDA
-graph (``utils/graphs.py``), as the JAX package's loaded StableHLO runs as
-one compiled program.
+operators ``centernet_tpu_torch::dcn_fwd`` (``ops/dcn_cuda.py``) and DLA's
+depthwise up convolutions as ``::up_dw_fwd`` (``ops/upsample.py``), so
+``load_serving`` imports those modules to register them: on the card a
+loaded program launches the hand-written kernels (and counts their
+launches), on the CPU the plain versions. On the card the loaded program
+runs as one CUDA graph (``utils/graphs.py``), as the JAX package's loaded
+StableHLO runs as one compiled program.
 """
 
 from __future__ import annotations
@@ -118,7 +119,8 @@ def load_serving(path: str, compiled: Optional[bool] = None) -> Callable:
     flattening and the input checks, which read shapes alone, runs at the
     warm-up and the capture, never at a replay. The weights are constants
     of the program, so nothing is refreshed before a replay."""
-    from ..ops import dcn_cuda  # noqa: F401  (registers the DCN operators)
+    # (register the operators a program may hold: the DCN's, DLA's up's)
+    from ..ops import dcn_cuda, upsample  # noqa: F401
 
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC))

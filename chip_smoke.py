@@ -10,13 +10,20 @@ It imports neither JAX nor the JAX package. Phases, in order; any failure
 raises and the script exits non-zero without printing a result:
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu`` and ``dcn_bwd.cu``
-   from the checkout (one nvcc per source, side by side);
+2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``
+   and ``upsample_dw.cu`` from the checkout (one nvcc per source, side by
+   side);
 3. kernel vs plain: the DCNv2 forward kernel against its plain PyTorch
    version at the 7 shapes of dla_34's 16 DCN layers at 512x512 (batch 4,
    as served), in bf16 and f32, with offsets across the clamp bounds and the
    clamp radius handed to the kernel; times of both, the time by launched
-   kernel name, and the card's bound for the same work;
+   kernel name, and the card's bound for the same work; then both up_dw
+   kernels (``csrc/upsample_dw.cu``, DLA's eight depthwise up layers)
+   against the plain version in float64 at dla_34's four up geometries at
+   B4 and B32, bf16 and f32 (y, dx, dW; the card tests' element rule,
+   UP_ROUND and UP_SUM), and in bf16 their times, the bytes' bound and the
+   library's time for the same layer (``F.conv_transpose2d(groups=C)`` and
+   its autograd backward, which the port never calls for it);
 4. serving slice: ``CenterNetDetection("dla_34", dtype=bfloat16)`` on the
    card serves 3 requests of 4 uint8 512x512 images through
    ``predict_batch``; the DCN launch count must grow by 16 per forward; one
@@ -89,12 +96,14 @@ raises and the script exits non-zero without printing a result:
    GATE_SEEDS model inits, of which at least one must pass (a gate's
    trajectory is chaotic and the card's sums vary from run to run; the
    passes are counted);
-12. export and data parallelism: ``torch.library.opcheck`` of both
-   operators at 128x128 C64->64 bf16 B4; dla_34 detection and pose (512x512,
+12. export and data parallelism: ``torch.library.opcheck`` of both DCN
+   operators at 128x128 C64->64 bf16 B4 and of both up operators at 32x32
+   C64 stride 4 (pad_h 2 and 0); dla_34 detection and pose (512x512,
    bf16, B4, phase 4's seeded weights) exported (``utils/export.py``: 16
-   ``dcn_fwd`` nodes, no cast copy cached by the trace), loaded and run in a
-   fresh interpreter that imports the port's export module alone (16
-   ``dcn_fwd`` launches per call, rows equal to the live ``infer_decode``'s
+   ``dcn_fwd`` and 8 ``up_dw_fwd`` nodes, no cast copy cached by the
+   trace), loaded and run in a fresh interpreter that imports the port's
+   export module alone (16 ``dcn_fwd`` and 8 ``up_dw_fwd`` launches per
+   call, rows equal to the live ``infer_decode``'s
    at phase 4's tolerances, a B1 input raising), both paths timed (CUDA
    events, host enqueue, device busy); two gloo ranks on the one card
    (``parallel.mesh.launch``; NCCL takes no two ranks on one GPU), each with
@@ -184,6 +193,16 @@ raises and the script exits non-zero without printing a result:
    naming gloo, ``--num_devices 2`` and ``--spatial 2`` refused by name;
    each path's times eager against graphed in phase 14's columns.
 
+Every path counts its launches of the four hand-written kernels
+(``launch_counts``: dcn_fwd, dcn_bwd, up_dw_fwd, up_dw_bwd) from 0 and
+holds them to ``launches_of``: per dla_34 forward 16 dcn_fwd and 8
+up_dw_fwd, per backward 16 dcn_bwd and 8 up_dw_bwd, graph replays
+included; resdcn 3 of each DCN kernel; no up_dw outside dla_34. Phase 9
+also holds the up kernels at every up shape the TTA met, phase 12 runs
+``opcheck`` of the up operators and counts 8 ``up_dw_fwd`` nodes in each
+exported program, and phase 13 requires every band's up call at pad_h 0
+and holds the kernels at every band shape met.
+
 Phases 4-8 and 10-13 build their tasks with ``compiled=False``: they run
 the eager path, whose numbers PRs 1-9 recorded, and phases 4, 10 and 11
 read DCN offsets on the host in module hooks, which a capture cannot hold.
@@ -200,10 +219,10 @@ CUDA-event time of the same call and dropped when they disagree (the
 profiler loses records late in a run).
 
 A watchdog ends a run that hangs after WATCHDOG_S seconds, with a
-traceback. On an H100 the whole script took 707.8 s, phase 14 140.4 s and
-phase 15 107.9 s of it (before phase 15: 623.8-715.3 s; before the gates
-and phase 13's training on the peak images replayed graphs, 773-844 s
-without phase 14), so no earlier phase was cut.
+traceback. On an H100 the whole script took 892.7 s, phase 13 199.8 s,
+phase 14 161.9 s and phase 15 113.3 s of it, with the up kernels' checks
+(before them: 707.8-772.2 s; before phase 15: 623.8-715.3 s), so no
+earlier phase was cut.
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as nvidia-smi prints them, and ``{"ok": true, "device": ...}``.
 """
@@ -244,6 +263,25 @@ DLA34_DCN = [
     (32, 256, 64, 1),
     (16, 512, 256, 1),
 ]
+# (input side, C, stride, layers): dla_34's eight depthwise up layers
+# (``BilinearConvTranspose``, the up_i of ``models/dla.py::IDAUp``) at a
+# 512x512 input; they run on the up_dw kernels (``ops/upsample.py``).
+DLA34_UP = [(16, 256, 2, 1), (32, 128, 2, 2), (64, 64, 2, 4), (32, 64, 4, 1)]
+UP_LAYERS = sum(n for *_, n in DLA34_UP)
+# Phase 3 holds the up kernels at BATCH (as served here) and at the
+# benchmark's B32, and times them at both.
+UP_BATCHES = (BATCH, 32)
+# The kernels whose launches the wrappers count (``dcn_cuda.launch_counts``).
+COUNTED = ("dcn_fwd", "dcn_bwd", "up_dw_fwd", "up_dw_bwd")
+# Up kernels vs the plain version in float64 on the same inputs, element by
+# element, as tests/test_torch_port_upsample_cuda.py holds them: |got -
+# exact| <= UP_ROUND * |exact| + UP_SUM * scale, scale the same sums over
+# the inputs' absolute values. UP_ROUND: one rounding of the f32 sum to the
+# output's dtype. UP_SUM: the f32 sums' own error in another order (4
+# products a term in y and dx; dW up to 32 x 64**2 products, ~113 adds
+# deep).
+UP_ROUND = {torch.bfloat16: 2.0 ** -8, torch.float32: 0.0}
+UP_SUM = {"y": 1e-6, "dx": 1e-6, "dw": 1e-5}
 # Kernel vs plain, as max |got - want| / max(1, max |want|). f32: both sum
 # exact f32 products in another order (9*Ci up to 4608 terms). bf16: both
 # round the sampled tile to bf16, but from f32 sums taken in another order,
@@ -298,6 +336,7 @@ KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:278"
 KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_fwd.cu"
 BWD_KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:414"
 BWD_KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_bwd.cu"
+UP_KERNEL_SRC = "centernet_tpu_torch/csrc/upsample_dw.cu"
 DEVICE = "cuda"
 WATCHDOG_S = 1100
 
@@ -432,7 +471,7 @@ def kernel_times(fn, iters: int, flush=None) -> dict:
         if (e.device_type != DeviceType.CUDA
                 or "FillFunctor<unsigned char>" in e.key):  # the L2 flush
             continue
-        m = re.search(r"dcn_\w+_kernel", e.key)
+        m = re.search(r"(dcn|up_dw)_\w+_kernel", e.key)
         name = m.group(0) if m else re.sub(r"^void |<.*", "", e.key)[:40]
         out[name] += getattr(e, "self_device_time_total", 0.0) / 1e3 / iters
     return dict(out)
@@ -658,6 +697,162 @@ def check_backward_kernel(dev, shapes=None):
     return rows
 
 
+def launches_of(arch, forwards, steps):
+    """The counted kernels' launches of ``forwards`` forwards and ``steps``
+    backward passes of ``arch``: each DCN layer launches dcn_fwd once a
+    forward and dcn_bwd once a backward (16 layers in dla_34, 3 in resdcn),
+    each of dla_34's eight depthwise up layers up_dw_fwd and up_dw_bwd
+    likewise; the res, resdcn and hourglass heads' full deconvolutions
+    (``ConvTranspose2x``) launch neither."""
+    dcn = 16 if arch == "dla_34" else n_dcn_layers(arch)
+    up = UP_LAYERS if arch == "dla_34" else 0
+    return {"dcn_fwd": dcn * forwards, "dcn_bwd": dcn * steps,
+            "up_dw_fwd": up * forwards, "up_dw_bwd": up * steps}
+
+
+def launch_record():
+    """The counted kernels' launches so far, as a dict."""
+    from centernet_tpu_torch.ops import dcn_cuda
+
+    return {k: dcn_cuda.launch_counts[k] for k in COUNTED}
+
+
+def up_bound_ms(b, h, w, c, stride, pad_h, pad_w, dtype):
+    """Least time of one up_dw forward and one backward, each over HBM
+    bandwidth (4 multiply-adds an output element in the forward, 8 in the
+    backward, are far below the card's rate): the forward reads x and w and
+    writes y once, the backward reads g, x and w and writes dx and dW once.
+    Returns (forward ms, backward ms)."""
+    from centernet_tpu_torch.ops.upsample import out_size
+
+    esize = torch.tensor([], dtype=dtype).element_size()
+    x = b * h * w * c * esize
+    y = b * out_size(h, stride, pad_h) * out_size(w, stride, pad_w) * c * esize
+    wt = 4 * stride * stride * c * esize
+    return (1e3 * (x + wt + y) / HBM_BYTES_PER_S,
+            1e3 * (y + 2 * x + 2 * wt) / HBM_BYTES_PER_S)
+
+
+def up_excess(got, exact, scale, dtype, name):
+    """The largest excess of |got - exact| over phase 3's up bound (<= 0
+    passes); raises on a non-finite or mistyped output."""
+    if got.dtype != dtype or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"up_dw {name}: {got.dtype} output, finite "
+                           f"{bool(torch.isfinite(got).all())}")
+    err = (got.double() - exact).abs()
+    return float((err - UP_ROUND[dtype] * exact.abs()
+                  - UP_SUM[name] * scale).max())
+
+
+def check_up_kernels(dev, shapes, timed):
+    """Both up_dw kernels against the plain version in float64 at every
+    (B, H, W, C, stride, pad_h, pad_w, layers) in ``shapes``, bf16 and f32,
+    at phase 3's up rule (UP_ROUND, UP_SUM): y, dx and dW, each launch
+    counted once. With ``timed``, the bf16 kernels' times (cold L2, with the
+    lead), the bound (``up_bound_ms``) and the library's time: the same
+    layer as ``F.conv_transpose2d(groups=C)`` on channels_last bf16 and its
+    autograd backward (dx and dW), which the port never calls for it."""
+    import torch.nn.functional as F
+
+    from centernet_tpu_torch.ops.upsample import (up_dw_backward_reference,
+                                                  up_dw_bwd_cuda,
+                                                  up_dw_fwd_cuda,
+                                                  up_dw_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = []
+    for b, h, w, c, s, ph, pw, layers in shapes:
+        geo = (s, ph, pw)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(b, h, w, c, generator=gen, device=dev).to(dtype)
+            wt = torch.randn(c, 1, 2 * s, 2 * s, generator=gen,
+                             device=dev).to(dtype)
+            before = launch_record()
+            y = up_dw_fwd_cuda(x, wt, *geo)
+            g = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+            dx, dw = up_dw_bwd_cuda(x, wt, g, *geo)
+            torch.cuda.synchronize()
+            grew = {k: v - before[k] for k, v in launch_record().items()}
+            if grew != {"dcn_fwd": 0, "dcn_bwd": 0, "up_dw_fwd": 1,
+                        "up_dw_bwd": 1}:
+                raise RuntimeError(f"up_dw launches counted {grew}")
+            xd, wd, gd = x.double(), wt.double(), g.double()
+            exact = (up_dw_reference(xd, wd, *geo),
+                     *up_dw_backward_reference(xd, wd, gd, *geo))
+            scale = (up_dw_reference(xd.abs(), wd.abs(), *geo),
+                     *up_dw_backward_reference(xd.abs(), wd.abs(), gd.abs(),
+                                               *geo))
+            excess = {name: up_excess(got, e, sc, dtype, name)
+                      for name, got, e, sc in zip(("y", "dx", "dw"),
+                                                  (y, dx, dw), exact, scale)}
+            abs_err = max(float((got.double() - e).abs().max())
+                          for got, e in zip((y, dx, dw), exact))
+            row = {"shape": f"B{b} {h}x{w} C{c} s{s} pad ({ph}, {pw})",
+                   "dtype": str(dtype)[6:], "layers": layers,
+                   "max_abs_err": abs_err, "excess": excess}
+            text = ""
+            if timed and dtype == torch.bfloat16:
+                xc = x.permute(0, 3, 1, 2).detach().requires_grad_()
+                wc = wt.detach().requires_grad_()
+                yc = F.conv_transpose2d(xc, wc, None, s, (ph, pw), groups=c)
+                gc = g.permute(0, 3, 1, 2)
+
+                def lib_fwd():
+                    with torch.no_grad():
+                        F.conv_transpose2d(xc, wc, None, s, (ph, pw),
+                                           groups=c)
+
+                def lib_bwd():
+                    torch.autograd.grad(yc, (xc, wc), gc, retain_graph=True)
+
+                fwd_bound, bwd_bound = up_bound_ms(b, h, w, c, *geo, dtype)
+                row.update(
+                    fwd_ms=cuda_ms(lambda: up_dw_fwd_cuda(x, wt, *geo), 20,
+                                   l2_flush.zero_, LEAD_CYCLES),
+                    bwd_ms=cuda_ms(lambda: up_dw_bwd_cuda(x, wt, g, *geo),
+                                   20, l2_flush.zero_, LEAD_CYCLES),
+                    lib_fwd_ms=cuda_ms(lib_fwd, 20, l2_flush.zero_,
+                                       LEAD_CYCLES),
+                    lib_bwd_ms=cuda_ms(lib_bwd, 20, l2_flush.zero_,
+                                       LEAD_CYCLES),
+                    fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound)
+                _, fwd_names = checked_by_name(kernel_times(
+                    lambda: up_dw_fwd_cuda(x, wt, *geo), 5, l2_flush.zero_),
+                    row["fwd_ms"])
+                _, bwd_names = checked_by_name(kernel_times(
+                    lambda: up_dw_bwd_cuda(x, wt, g, *geo), 5,
+                    l2_flush.zero_), row["bwd_ms"])
+                text = (f"; fwd {row['fwd_ms']:.4f} ms (bound "
+                        f"{fwd_bound:.4f}, conv_transpose2d "
+                        f"{row['lib_fwd_ms']:.4f}), bwd {row['bwd_ms']:.4f} "
+                        f"ms (bound {bwd_bound:.4f}, conv_transpose2d "
+                        f"autograd {row['lib_bwd_ms']:.4f}); by kernel: fwd "
+                        f"{fwd_names}; bwd {bwd_names}")
+                del xc, wc, yc, gc
+            rows.append(row)
+            print(f"up_dw {row['shape']:>32} {row['dtype']:>8} x{layers}: "
+                  f"excess over the bound " + " ".join(
+                      f"{k} {v:.1e}" for k, v in excess.items()) + text,
+                  flush=True)
+            bad = [k for k, v in excess.items() if v > 0]
+            if bad:
+                raise RuntimeError(f"the up_dw kernels disagree with the "
+                                   f"plain version at {row['shape']} "
+                                   f"{row['dtype']} in {bad}")
+            del x, wt, y, g, dx, dw, exact, scale
+    del l2_flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dla34_up_shapes(b):
+    """dla_34's up layers at a 512x512 input and batch ``b``, as
+    ``check_up_kernels`` takes them (the module pads f / 2 both ways)."""
+    return [(b, n, n, c, s, s // 2, s // 2, layers)
+            for n, c, s, layers in DLA34_UP]
+
+
 def train_batch(rng, b, hw=HW):
     """``b`` uint8 images and their padded annotations, on the card: BOXES
     random boxes per image as bench.py draws them (x, y, w, h uniform in
@@ -677,7 +872,8 @@ def train_batch(rng, b, hw=HW):
 
 def run_train_slice(task, images, target):
     """Phase 7, the counted run: TRAIN_STEPS steps of ``task`` on one batch;
-    each DCN kernel must launch 16 times a step and the loss must fall."""
+    each DCN kernel must launch 16 times a step, each up kernel 8 times,
+    and the loss must fall."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.parallel.trainer import make_train_step
 
@@ -688,18 +884,18 @@ def run_train_slice(task, images, target):
     for i in range(TRAIN_STEPS):
         before = dict(dcn_cuda.launch_counts)
         stats = {k: float(v) for k, v in step(images, target).items()}
-        for name in ("dcn_fwd", "dcn_bwd"):
-            grew = dcn_cuda.launch_counts[name] - before.get(name, 0)
-            if grew != 16:
-                raise RuntimeError(f"step {i}: {name} launched {grew} times, "
-                                   f"not 16")
+        grew = {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
+                for k in COUNTED}
+        if grew != launches_of("dla_34", 1, 1):
+            raise RuntimeError(f"step {i}: launches {grew}, want "
+                               f"{launches_of('dla_34', 1, 1)}")
         if not all(np.isfinite(v) for v in stats.values()):
             raise RuntimeError(f"step {i}: non-finite loss {stats}")
         losses.append(stats["loss"])
         print(f"step {i}: loss {stats['loss']:.4f} (hm {stats['hm_loss']:.4f}"
               f", wh {stats['wh_loss']:.4f}, off {stats['off_loss']:.4f})",
               flush=True)
-    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    launches = launch_record()
     print(f"{TRAIN_STEPS} steps in {time.perf_counter() - t0:.2f} s (the first "
           f"includes cuDNN warm-up); launches {launches}")
     if not losses[-1] < losses[0]:
@@ -1055,30 +1251,50 @@ def dcn_call_hook(seen):
     return register_module_forward_pre_hook(pre)
 
 
-def counted(fn, seen):
-    """Run ``fn`` with the DCN launch counts set to 0 and every DCN call
-    recorded in ``seen``; returns (fn's result, seconds, launches)."""
+def up_call_hook(seen):
+    """A global forward pre-hook counting every call of DLA's depthwise up
+    layer by (B, H, W, C, stride, pad_h, pad_w), whichever task runs it."""
+    from torch.nn.modules.module import register_module_forward_pre_hook
+
+    from centernet_tpu_torch.models.layers import BilinearConvTranspose
+
+    def pre(mod, inp):
+        if isinstance(mod, BilinearConvTranspose):
+            b, c, h, w = inp[0].shape
+            seen[(b, h, w, c, mod.stride[0], *mod.padding)] += 1
+
+    return register_module_forward_pre_hook(pre)
+
+
+def counted(fn, seen, seen_up=None):
+    """Run ``fn`` with the launch counts set to 0 and every DCN call
+    recorded in ``seen`` (every up layer's call in ``seen_up`` if given);
+    returns (fn's result, seconds, launches)."""
     from centernet_tpu_torch.ops import dcn_cuda
 
-    handle = dcn_call_hook(seen)
+    handles = [dcn_call_hook(seen)]
+    if seen_up is not None:
+        handles.append(up_call_hook(seen_up))
     dcn_cuda.launch_counts.clear()
     t0 = time.perf_counter()
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
-        handle.remove()
+        for handle in handles:
+            handle.remove()
     secs = time.perf_counter() - t0
-    return out, secs, {k: dcn_cuda.launch_counts[k]
-                       for k in ("dcn_fwd", "dcn_bwd")}
+    return out, secs, launch_record()
 
 
-def expect_launches(run, launches, fwd, bwd):
-    print(f"{run}: dcn_fwd {launches['dcn_fwd']}, dcn_bwd "
-          f"{launches['dcn_bwd']} launches (want {fwd}, {bwd})")
-    if (launches["dcn_fwd"], launches["dcn_bwd"]) != (fwd, bwd):
-        raise RuntimeError(f"{run}: the DCN layers did not all run on the "
-                           f"kernels: {launches}, want {fwd} and {bwd}")
+def expect_launches(run, launches, arch, forwards, steps):
+    """``launches`` must be ``forwards`` forwards' and ``steps`` backward
+    passes' worth of ``arch`` (``launches_of``)."""
+    want = launches_of(arch, forwards, steps)
+    print(f"{run}: launches {launches} (want {want})")
+    if launches != want:
+        raise RuntimeError(f"{run}: the DCN and up layers did not all run on "
+                           f"the kernels: {launches}, want {want}")
 
 
 def read_metrics(path):
@@ -1250,8 +1466,8 @@ def run_cli_slice(dev, card, root):
     trainer, secs, launches = counted(lambda: cli_det.cli_main(
         common + ["--max_epochs", "1", "--worker_mode", "thread"]),
         seen_train)
-    expect_launches("cli train (3 steps + 1 val batch)", launches,
-                    16 * (CLI_STEPS + 1), 16 * CLI_STEPS)
+    expect_launches("cli train (3 steps + 1 val batch)", launches, "dla_34",
+                    CLI_STEPS + 1, CLI_STEPS)
     out["launches"]["cli_train"] = launches
     last = os.path.join(runs, "checkpoints", "last")
     out["coco"] = {"image_root": image_root, "eval_root": eval_root,
@@ -1282,8 +1498,8 @@ def run_cli_slice(dev, card, root):
     trainer, secs, launches = counted(lambda: cli_det.cli_main(
         common + ["--max_epochs", "2", "--worker_mode", "process",
                   "--resume_from", last]), seen_resume)
-    expect_launches("cli resume (forked workers)", launches,
-                    16 * (CLI_STEPS + 1), 16 * CLI_STEPS)
+    expect_launches("cli resume (forked workers)", launches, "dla_34",
+                    CLI_STEPS + 1, CLI_STEPS)
     out["launches"]["cli_resume"] = launches
     epochs = [r for r in read_metrics(log) if "train_images_per_sec" in r]
     steps_per_epoch = MINI_TRAIN // BATCH
@@ -1304,18 +1520,18 @@ def run_cli_slice(dev, card, root):
 
     # evaluation of the checkpoint over MINI_EVAL val images
     evals = {}
-    seen_tta = collections.Counter()
+    seen_tta, seen_up_tta = collections.Counter(), collections.Counter()
     for name, flags, fwd in (
-            ("flip", ["--flip"], 16 * MINI_EVAL),
-            ("flip_multi_scale", ["--flip", "--multi_scale"],
-             16 * 5 * MINI_EVAL),
+            ("flip", ["--flip"], MINI_EVAL),
+            ("flip_multi_scale", ["--flip", "--multi_scale"], 5 * MINI_EVAL),
             ("batched", ["--batched", "--eval_batch_size", str(BATCH)],
-             16 * -(-MINI_EVAL // BATCH))):
-        seen = seen_tta if name != "batched" else collections.Counter()
+             -(-MINI_EVAL // BATCH))):
+        tta = name != "batched"
         stats, secs, launches = counted(lambda: cli_tst.cli_test(
             ["detection", image_root, eval_root, "--checkpoint", last]
-            + flags), seen)
-        expect_launches(f"cli test {name}", launches, fwd, 0)
+            + flags), seen_tta if tta else collections.Counter(),
+            seen_up_tta if tta else None)
+        expect_launches(f"cli test {name}", launches, "dla_34", fwd, 0)
         out["launches"][f"test_{name}"] = launches
         if not stats or not all(np.isfinite(v) for v in stats.values()):
             raise RuntimeError(f"cli test {name}: stats {stats}")
@@ -1402,6 +1618,10 @@ def run_cli_slice(dev, card, root):
     out["tta_shapes"] = {
         "shapes": len(shapes), "ragged": len(ragged),
         "max_abs_err": errs, "fwd_ms": total, "fwd_bound_ms": bound}
+    # the up kernels at every up shape TTA met
+    print(f"TTA met {len(seen_up_tta)} up layer shapes")
+    out["up_tta_rows"] = check_up_kernels(
+        dev, [(*k, n) for k, n in sorted(seen_up_tta.items())], False)
 
     # the card against the CPU through the flip TTA
     state = {k: v.float().cpu()
@@ -1529,8 +1749,9 @@ def check_kernels_in_model(task, img):
 
 def serve_other(task, rng, card):
     """Phase 10 serving for ``task.arch``: REQUESTS requests of BATCH
-    512x512 images through ``predict_batch`` with the DCN launches counted
-    (3 per forward for resdcn, none otherwise) and the DCN shapes recorded,
+    512x512 images through ``predict_batch`` with the launches counted
+    (3 dcn_fwd per forward for resdcn, none otherwise; no up_dw) and the DCN
+    shapes recorded,
     then the B4 forward + decode timed."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.tasks.detection import identity_metas
@@ -1554,12 +1775,12 @@ def serve_other(task, rng, card):
     finally:
         for h in handles:
             h.remove()
-    launches = dcn_cuda.launch_counts["dcn_fwd"]
-    print(f"{arch}: served {REQUESTS} requests of {BATCH} images; dcn_fwd "
-          f"launches {launches} (want {n_dcn * REQUESTS})")
-    if launches != n_dcn * REQUESTS:
-        raise RuntimeError(f"{arch}: {launches} dcn_fwd launches, want "
-                           f"{n_dcn * REQUESTS}")
+    launches = launch_record()
+    want = launches_of(arch, REQUESTS, 0)
+    print(f"{arch}: served {REQUESTS} requests of {BATCH} images; launches "
+          f"{launches} (want {want})")
+    if launches != want:
+        raise RuntimeError(f"{arch}: launches {launches}, want {want}")
     if n_dcn:
         ci0 = 2048 if arch == "resdcn_101" else 512
         want = collections.Counter({(HW // 32, ci0, 256): REQUESTS,
@@ -1610,7 +1831,6 @@ def train_other(task, rng, card):
     from centernet_tpu_torch.parallel.trainer import make_train_step
 
     arch = task.arch
-    n_dcn = n_dcn_layers(arch)
     images, target = train_batch(rng, BATCH)
     step = make_train_step(task, task.configure_optimizer(1))
     losses = []
@@ -1619,15 +1839,15 @@ def train_other(task, rng, card):
         before = dict(dcn_cuda.launch_counts)
         stats = {k: float(v) for k, v in step(images, target).items()}
         grew = {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
-                for k in ("dcn_fwd", "dcn_bwd")}
-        if grew != {"dcn_fwd": n_dcn, "dcn_bwd": n_dcn}:
-            raise RuntimeError(f"{arch} step {i}: DCN launches {grew}, want "
-                               f"{n_dcn} of each")
+                for k in COUNTED}
+        if grew != launches_of(arch, 1, 1):
+            raise RuntimeError(f"{arch} step {i}: launches {grew}, want "
+                               f"{launches_of(arch, 1, 1)}")
         if not all(np.isfinite(v) for v in stats.values()):
             raise RuntimeError(f"{arch} step {i}: non-finite loss {stats}")
         losses.append(stats["loss"])
-    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
-    print(f"{arch} train: losses {[round(v, 4) for v in losses]}; DCN "
+    launches = launch_record()
+    print(f"{arch} train: losses {[round(v, 4) for v in losses]}; "
           f"launches {launches}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"{arch}: the loss did not fall: {losses}")
@@ -1742,9 +1962,8 @@ def run_other_clis(dev, card):
                     "--skip_test", "--default_root_dir", runs]
             trainer, secs, launches = counted(
                 lambda: cli_det.cli_main(args), collections.Counter())
-            expect_launches(f"cli train {arch}", launches,
-                            n_dcn * (OTHER_CLI_STEPS + 1),
-                            n_dcn * OTHER_CLI_STEPS)
+            expect_launches(f"cli train {arch}", launches, arch,
+                            OTHER_CLI_STEPS + 1, OTHER_CLI_STEPS)
             train_launches = launches
             last = os.path.join(runs, "checkpoints", "last")
             hp = load_checkpoint_hparams(last)
@@ -1758,8 +1977,8 @@ def run_other_clis(dev, card):
             stats, secs, launches = counted(lambda: cli_tst.cli_test(
                 ["detection", image_root, eval_root, "--checkpoint", last,
                  "--flip"]), seen)
-            expect_launches(f"cli test {arch} flip", launches,
-                            n_dcn * OTHER_EVAL, 0)
+            expect_launches(f"cli test {arch} flip", launches, arch,
+                            OTHER_EVAL, 0)
             if not stats or not all(np.isfinite(v) for v in stats.values()):
                 raise RuntimeError(f"cli test {arch}: stats {stats}")
             print(f"cli test {arch} flip: {secs:.2f} s for {OTHER_EVAL} "
@@ -1961,8 +2180,9 @@ def check_pose_tta_card_vs_cpu(task, img_bgr01):
 
 def serve_pose(task, rng, card):
     """Phase 11 serving: REQUESTS requests of BATCH 512x512 uint8 images
-    through ``predict_batch`` (16 dcn_fwd launches per forward, counted from
-    0), [100, 57] finite rows per image; then forward + decode at B4 timed."""
+    through ``predict_batch`` (16 dcn_fwd and 8 up_dw_fwd launches per
+    forward, counted from 0), [100, 57] finite rows per image; then forward
+    + decode at B4 timed."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.tasks.detection import identity_metas
 
@@ -1978,15 +2198,16 @@ def serve_pose(task, rng, card):
     finally:
         for h in handles:
             h.remove()
-    launches = dcn_cuda.launch_counts["dcn_fwd"]
-    print(f"pose: served {REQUESTS} requests of {BATCH} images; dcn_fwd "
-          f"launches {launches} (want {16 * REQUESTS}); offsets before the "
-          f"clamp up to {seen['offset_absmax']:.2f} cells")
+    launches = launch_record()
+    print(f"pose: served {REQUESTS} requests of {BATCH} images; launches "
+          f"{launches} (want {launches_of('dla_34', REQUESTS, 0)}); offsets "
+          f"before the clamp up to {seen['offset_absmax']:.2f} cells")
     want = collections.Counter(
         {(hw, ci, co): n * REQUESTS for hw, ci, co, n in DLA34_DCN})
-    if launches != 16 * REQUESTS or seen["shapes"] != want:
-        raise RuntimeError(f"pose serving: {launches} dcn_fwd launches, DCN "
-                           f"shapes {dict(seen['shapes'])}")
+    if (launches != launches_of("dla_34", REQUESTS, 0)
+            or seen["shapes"] != want):
+        raise RuntimeError(f"pose serving: launches {launches}, DCN shapes "
+                           f"{dict(seen['shapes'])}")
     for per_request in results:
         for rows in per_request:
             if rows.shape != (100, 57) or not np.isfinite(rows).all():
@@ -2015,8 +2236,9 @@ def serve_pose(task, rng, card):
 
 def train_pose(task, rng, card):
     """Phase 11 training: TRAIN_STEPS bf16 B4 steps on one batch with
-    keypoint targets encoded on the card, 16 launches of each kernel a step
-    (counted from 0), a falling loss; then the step timed."""
+    keypoint targets encoded on the card, 16 launches of each DCN kernel
+    and 8 of each up kernel a step (counted from 0), a falling loss; then
+    the step timed."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.parallel.trainer import make_train_step
 
@@ -2028,9 +2250,9 @@ def train_pose(task, rng, card):
         before = dict(dcn_cuda.launch_counts)
         stats = {k: float(v) for k, v in step(images, target).items()}
         grew = {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
-                for k in ("dcn_fwd", "dcn_bwd")}
-        if grew != {"dcn_fwd": 16, "dcn_bwd": 16}:
-            raise RuntimeError(f"pose step {i}: DCN launches {grew}")
+                for k in COUNTED}
+        if grew != launches_of("dla_34", 1, 1):
+            raise RuntimeError(f"pose step {i}: launches {grew}")
         if not all(np.isfinite(v) for v in stats.values()):
             raise RuntimeError(f"pose step {i}: non-finite loss {stats}")
         losses.append(stats["loss"])
@@ -2039,7 +2261,7 @@ def train_pose(task, rng, card):
               f"{stats['kp_loss']:.4f}, hm_off {stats['hm_offset_loss']:.4f}"
               f", wh {stats['wh_loss']:.4f}, off {stats['off_loss']:.4f})",
               flush=True)
-    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    launches = launch_record()
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"the pose loss did not fall: {losses}")
     for _ in range(2):
@@ -2096,7 +2318,7 @@ def run_pose_clis(dev, card):
                                           collections.Counter())
         # train steps + one val batch + flip TTA of the MINI_VAL val images
         expect_launches("cli.multi_pose (train, val, flip test)", launches,
-                        16 * (CLI_STEPS + 1 + MINI_VAL), 16 * CLI_STEPS)
+                        "dla_34", CLI_STEPS + 1 + MINI_VAL, CLI_STEPS)
         out["launches"]["cli_train"] = launches
         last = os.path.join(runs, "checkpoints", "last")
         hp = load_checkpoint_hparams(last)
@@ -2122,7 +2344,7 @@ def run_pose_clis(dev, card):
             ["multi_pose", image_root, eval_root, "--checkpoint", last,
              "--flip", "--multi_scale"]), collections.Counter())
         expect_launches("cli.test multi_pose --flip --multi_scale", launches,
-                        16 * 5 * MINI_EVAL, 0)
+                        "dla_34", 5 * MINI_EVAL, 0)
         out["launches"]["tta"] = launches
         if not {"test/multi-scale_flip_kp_ap",
                 "test/multi-scale_flip_bbox_ap"} <= set(stats) or not all(
@@ -2248,10 +2470,10 @@ def run_gate(name, task, imgs, target, kinds, size, max_steps, converged,
     after = gate_ap(task, imgs, evaluators, size)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
-    want = {"dcn_fwd": 3 * (steps + 2), "dcn_bwd": 3 * steps}
+    launches = launch_record()
+    want = launches_of(task.arch, steps + 2, steps)
     if launches != want:
-        raise RuntimeError(f"{name}: DCN launches {launches}, want {want}")
+        raise RuntimeError(f"{name}: launches {launches}, want {want}")
     passed = held == checks and all(
         b >= floor and b >= a + margin
         for a, b, floor, margin in zip(before, after, floors, margins))
@@ -2472,7 +2694,7 @@ for i in range(1, len(sys.argv), 3):
     dcn.launch_counts.clear()
     rows = call(imgs)
     torch.cuda.synchronize()
-    launches = {k: dcn.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    launches = {k: dcn.launch_counts[k] for k in cs.COUNTED}
     for _ in range(3):
         call(imgs)
     ms = cs.cuda_ms(lambda: call(imgs), 20)
@@ -2494,8 +2716,9 @@ for i in range(1, len(sys.argv), 3):
 
 
 def check_ops_on_card(dev):
-    """12(a): ``torch.library.opcheck`` of both operators on the card."""
-    from centernet_tpu_torch.ops import dcn_cuda
+    """12(a): ``torch.library.opcheck`` of the DCN operators and the up
+    operators on the card."""
+    from centernet_tpu_torch.ops import dcn_cuda, upsample
 
     b, hw, ci, co = OPCHECK_SHAPE
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2513,6 +2736,25 @@ def check_ops_on_card(dev):
         print(f"opcheck {op._name}: {', '.join(sorted(res))} passed")
     print(f"at B{b} {hw}x{hw} C{ci}->{co} bf16, radius {r}, "
           f"{time.perf_counter() - t0:.1f} s")
+    # the up operators at dla_34's stride-4 layer, B4 (its band padding too)
+    t0 = time.perf_counter()
+    n, c, s, _ = DLA34_UP[-1]
+    x = torch.randn(b, n, n, c, generator=gen, device=dev).bfloat16()
+    wt = torch.randn(c, 1, 2 * s, 2 * s, generator=gen, device=dev).bfloat16()
+    for ph in (s // 2, 0):
+        y = upsample.up_dw_fwd(x, wt, s, ph, s // 2)
+        g = torch.randn(y.shape, generator=gen, device=dev).bfloat16()
+        for op, args in ((upsample.up_dw_fwd, (x, wt, s, ph, s // 2)),
+                         (upsample.up_dw_bwd, (x, wt, g, s, ph, s // 2))):
+            res = torch.library.opcheck(op, args, rtol=OPCHECK_RTOL,
+                                        atol=OPCHECK_ATOL)
+            bad = {k: v for k, v in res.items() if v != "SUCCESS"}
+            if bad:
+                raise RuntimeError(f"opcheck of {op} (pad_h {ph}): {bad}")
+            print(f"opcheck {op._name} (pad_h {ph}): "
+                  f"{', '.join(sorted(res))} passed")
+    print(f"at B{b} {n}x{n} C{c} stride {s} bf16, "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def sorted_rows(rows):
@@ -2529,7 +2771,8 @@ def sorted_rows(rows):
 def export_live(dev, kind, workdir):
     """12(b), in this process, for ``kind`` ("detection" or "multi_pose"):
     dla_34 at 512x512, bf16, B4, phase 4's seeded weights, exported and
-    saved (16 dcn_fwd nodes, the weights as bf16 constants, no traced
+    saved (16 dcn_fwd and 8 up_dw_fwd nodes, the weights as bf16
+    constants, no traced
     tensor left in the cast caches); the live
     ``infer_decode``'s rows and batch times on the same inputs."""
     from centernet_tpu_torch.tasks.detection import CenterNetDetection
@@ -2547,13 +2790,17 @@ def export_live(dev, kind, workdir):
     t0 = time.perf_counter()
     program = export_serving(task, path, input_size=HW, batch=EXPORT_BATCH)
     export_s = time.perf_counter() - t0
+    ops = torch.ops.centernet_tpu_torch
     nodes = sum(1 for n in program.graph.nodes
-                if n.target is torch.ops.centernet_tpu_torch.dcn_fwd.default)
+                if n.target is ops.dcn_fwd.default)
+    up_nodes = sum(1 for n in program.graph.nodes
+                   if n.target is ops.up_dw_fwd.default)
     size_mb = os.path.getsize(path) / 2 ** 20
     print(f"{kind}: exported in {export_s:.1f} s, {size_mb:.1f} MiB, "
-          f"{nodes} dcn_fwd nodes in the graph")
-    if nodes != 16:
-        raise RuntimeError(f"the exported graph holds {nodes} dcn_fwd nodes")
+          f"{nodes} dcn_fwd and {up_nodes} up_dw_fwd nodes in the graph")
+    if (nodes, up_nodes) != (16, UP_LAYERS):
+        raise RuntimeError(f"the exported graph holds {nodes} dcn_fwd and "
+                           f"{up_nodes} up_dw_fwd nodes")
     traced = [type(hit[1]).__name__ for m in task.model.modules()
               for hit in m.__dict__.get("_cast_cache", {}).values()
               if type(hit[1]) is not torch.Tensor]
@@ -2602,13 +2849,14 @@ def serve_in_fresh_interpreter(exported):
 
 def check_served(kind, live, got, card):
     """12(b): the loaded ``kind`` program against the live path: 16 dcn_fwd
-    launches per call and no dcn_bwd, a wrong shape raising, rows as sets
-    within phase 4's tolerances; both paths' batch times."""
+    and 8 up_dw_fwd launches per call and no backward, a wrong shape
+    raising, rows as sets within phase 4's tolerances; both paths' batch
+    times."""
     print(f"{kind}: {got['info']}; kernel launches in one call "
           f"{got['launches']}")
-    if got["launches"] != {"dcn_fwd": 16, "dcn_bwd": 0}:
+    if got["launches"] != launches_of("dla_34", 1, 0):
         raise RuntimeError(f"the loaded program's launches per call: "
-                           f"{got['launches']}, not 16 dcn_fwd alone")
+                           f"{got['launches']}, not one forward's")
     if got["wrong_shape"] is None:
         raise RuntimeError("a B1 input to the B4 program did not raise")
     print(f"{kind}: a B1 input raised: {got['wrong_shape']}")
@@ -2670,7 +2918,7 @@ def dp_step_record(task, step, images, target, rows):
     return {"stats": {k: float(v) for k, v in stats.items()},
             "ms": 1e3 * (time.perf_counter() - t0),
             "launches": {k: dcn_cuda.launch_counts[k] - before.get(k, 0)
-                         for k in ("dcn_fwd", "dcn_bwd")}}
+                         for k in COUNTED}}
 
 
 def model_state(model):
@@ -2905,7 +3153,7 @@ def run_export_and_dp(dev, card):
     torch.cuda.empty_cache()
     for r, res in enumerate(ranks):
         for i, s in enumerate(res["bf16"]):
-            if s["launches"] != {"dcn_fwd": 16, "dcn_bwd": 16}:
+            if s["launches"] != launches_of("dla_34", 1, 1):
                 raise RuntimeError(f"rank {r} bf16 step {i}: launches "
                                    f"{s['launches']}")
             if not all(np.isfinite(v) for v in s["stats"].values()):
@@ -2920,7 +3168,7 @@ def run_export_and_dp(dev, card):
                for i in range(DP_STEPS)]
     # as the ranks counted them (every rank and step alike, checked above)
     per_step = {k: max(s["launches"][k] for res in ranks
-                       for s in res["bf16"]) for k in ("dcn_fwd", "dcn_bwd")}
+                       for s in res["bf16"]) for k in COUNTED}
     print(f"bf16, {DP_STEPS} steps of 2 x B{DP_LOCAL_B}: losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}; launches per rank per "
           f"step {per_step}; parameters bitwise equal across the ranks "
@@ -3132,14 +3380,15 @@ def spatial_task(arch, kind, dtype, dev, weights=None):
 
 def spatial_rank(n_model, cases, weights):
     """13, in each rank of a ``(1, n_model)`` mesh of gloo ranks on cuda:0:
-    per case, the rows of ``make_spatial_infer`` (the counted run, both DCN
-    kernels' launches and the shapes ``dcn_fwd`` was called at), the
+    per case, the rows of ``make_spatial_infer`` (the counted run, the
+    counted kernels' launches and the shapes ``dcn_fwd`` and ``up_dw_fwd``
+    were called at), the
     single-device ``infer_decode`` rows of the same task, the error of the
     last stack's heads (``make_spatial_heads`` against ``apply``), the
     zero-halo control's rows and heads (SPATIAL_CONTROLS) and the host time
     of the spatial forward. ``weights`` maps an arch to its "peaks" state
     dict."""
-    from centernet_tpu_torch.ops import dcn_cuda, halo
+    from centernet_tpu_torch.ops import dcn_cuda, halo, upsample
     from centernet_tpu_torch.parallel import spatial
     from centernet_tpu_torch.parallel.mesh import make_mesh
 
@@ -3155,6 +3404,7 @@ def spatial_rank(n_model, cases, weights):
             0, 256, (SPATIAL_B, *hw, 3), dtype=np.uint8)
 
     launch = dcn_cuda.deform_conv2d_cuda
+    launch_up = upsample.up_dw_fwd_cuda
     out = []
     for case in cases:
         arch, kind, dtype, source, hw = case
@@ -3163,26 +3413,32 @@ def spatial_rank(n_model, cases, weights):
         images = inputs(source, hw)
         infer = spatial.make_spatial_infer(task, mesh)
         infer(images)  # cuDNN's first calls at the slab shapes
-        shapes = collections.Counter()
+        shapes, up_shapes = collections.Counter(), collections.Counter()
 
         def recorded(x, offsets, mask, weight, bias, radius=4):
             shapes[(*x.shape, weight.shape[1], radius,
                     str(x.dtype)[6:])] += 1
             return launch(x, offsets, mask, weight, bias, radius)
 
+        def recorded_up(x, weight, stride, pad_h, pad_w):
+            up_shapes[(*x.shape, stride, pad_h, pad_w)] += 1
+            return launch_up(x, weight, stride, pad_h, pad_w)
+
         dcn_cuda.deform_conv2d_cuda = recorded
+        upsample.up_dw_fwd_cuda = recorded_up
         dcn_cuda.launch_counts.clear()
         try:
             rows = infer(images)
             torch.cuda.synchronize()
-            launches = {k: dcn_cuda.launch_counts[k]
-                        for k in ("dcn_fwd", "dcn_bwd")}
+            launches = {k: dcn_cuda.launch_counts[k] for k in COUNTED}
         finally:
             dcn_cuda.deform_conv2d_cuda = launch
+            upsample.up_dw_fwd_cuda = launch_up
         heads = spatial.make_spatial_heads(task, mesh)
         one_heads = task.apply(images)[-1]
         res = {"case": (arch, kind, str(dtype)[6:], source, hw),
                "launches": launches, "shapes": dict(shapes),
+               "up_shapes": dict(up_shapes),
                "rows": rows.float().cpu().numpy(),
                "one": task.infer_decode(images).float().cpu().numpy(),
                "heads_err": heads_error(heads(images), one_heads)}
@@ -3344,7 +3600,8 @@ def run_spatial(dev, card):
     from centernet_tpu_torch.parallel.mesh import launch
 
     t_phase = time.perf_counter()
-    out = {"cases": {}, "shapes": collections.Counter(), "control": {}}
+    out = {"cases": {}, "shapes": collections.Counter(),
+           "up_shapes": collections.Counter(), "control": {}}
     results = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_peaks_") as root:
         weights = {}
@@ -3377,7 +3634,8 @@ def run_spatial(dev, card):
                                f"against {one.shape}")
         box, score, counts = row_errors(rows, one, box_tol, score_tol)
         plan = dcn_slab_plan(arch, hw, getattr(torch, dtype), n_model, rank)
-        want = {"dcn_fwd": sum(plan.values()), "dcn_bwd": 0}
+        # the up layers: each once a forward, on the band with pad_h 0
+        want = {**launches_of(arch, 1, 0), "dcn_fwd": sum(plan.values())}
         joint = " and joint" if kind == "multi_pose" else ""
         peaks = int((one[..., 4] >= PEAK_SCORE).sum())
         print(f"{name} rank {rank} ({source}: {peaks} rows scoring >= "
@@ -3394,11 +3652,14 @@ def run_spatial(dev, card):
         if counts["unmatched"] or res["heads_err"] > heads_tol:
             raise RuntimeError(f"{name} rank {rank}: the spatial rows "
                                f"disagree with the single-device path")
-        if res["launches"] != want or res["shapes"] != plan:
+        if (res["launches"] != want or res["shapes"] != plan
+                or any(k[5] for k in res["up_shapes"])):
             raise RuntimeError(f"{name} rank {rank}: launches "
-                               f"{res['launches']} at {res['shapes']}, the "
-                               f"band plan {want} at {dict(plan)}")
+                               f"{res['launches']} at {res['shapes']} and "
+                               f"up_dw at {res['up_shapes']}, the band plan "
+                               f"{want} at {dict(plan)} (up_dw pad_h 0)")
         out["shapes"].update(res["shapes"])
+        out["up_shapes"].update(res["up_shapes"])
         entry = out["cases"].setdefault(name, {
             "inputs": source,
             "launches_per_rank": {k: [] for k in res["launches"]},
@@ -3424,7 +3685,11 @@ def run_spatial(dev, card):
             out["control"][f"{name} rank {rank}"] = {"rows": c_counts,
                                                      "heads_err": c_heads}
     out["kernel_rows"] = check_kernel_at_slabs(out["shapes"], dev)
+    # the up kernels at every band shape met (calls of every rank)
+    out["up_kernel_rows"] = check_up_kernels(
+        dev, [(*k, n) for k, n in sorted(out["up_shapes"].items())], False)
     out["shapes"] = {str(s): n for s, n in out["shapes"].items()}
+    out["up_shapes"] = {str(s): n for s, n in out["up_shapes"].items()}
     refused_by_name(cli_test, ["detection", "images", "annotations",
                                "--batched", "--spatial", "2"], "--spatial 2")
     out["seconds"] = time.perf_counter() - t_phase
@@ -3595,7 +3860,8 @@ def serve_graphs(cls, rng, batches, card):
     """dla_34 bf16 serving of ``cls``: per batch, the graphed
     ``infer_decode`` (its third call, a replay) against the eager
     ``forward_decode`` on the same uint8 images at phase 4's tolerances, 16
-    ``dcn_fwd`` per replay; the weights check at the first batch; times."""
+    ``dcn_fwd`` and 8 ``up_dw_fwd`` per replay; the weights check at the
+    first batch; times."""
     from centernet_tpu_torch.ops import dcn_cuda
 
     task = cls("dla_34", dtype=torch.bfloat16, device=DEVICE, seed=SEED)
@@ -3613,16 +3879,15 @@ def serve_graphs(cls, rng, batches, card):
         dcn_cuda.launch_counts.clear()
         got = task.infer_decode(imgs)
         torch.cuda.synchronize()
-        launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd",
-                                                           "dcn_bwd")}
+        launches = launch_record()
         err = rows_error(got, task.forward_decode(imgs))
         print(f"{label}: graphed vs eager {fmt_rows(err)}; launches per "
               f"replay {launches}", flush=True)
         if not rows_agree(err):
             raise RuntimeError(f"{label}: the graphed rows disagree")
-        if launches != {"dcn_fwd": 16, "dcn_bwd": 0}:
-            raise RuntimeError(f"{label}: {launches} per replay, want 16 "
-                               f"dcn_fwd")
+        if launches != launches_of("dla_34", 1, 0):
+            raise RuntimeError(f"{label}: {launches} per replay, want "
+                               f"{launches_of('dla_34', 1, 0)}")
         res = {"rows": err, "launches_per_replay": launches}
         if b == batches[0]:
             res["weights"] = follow_weights(task, imgs)
@@ -3636,8 +3901,8 @@ def serve_graphs(cls, rng, batches, card):
 
 def train_record(task, images, target, compiled, k=1, clip=None, mesh=None):
     """COMPILED_STEPS steps with a fresh optimizer from the task's weights
-    (over ``mesh``'s data axis if given): per step the loss and the DCN
-    launches, then the parameters, BatchNorm buffers, Adam's moments and
+    (over ``mesh``'s data axis if given): per step the loss and the counted
+    launches (in COUNTED's order), then the parameters, BatchNorm buffers, Adam's moments and
     step counts, and the learning rate."""
     from centernet_tpu_torch.ops import dcn_cuda
     from centernet_tpu_torch.parallel.trainer import make_train_step
@@ -3650,8 +3915,7 @@ def train_record(task, images, target, compiled, k=1, clip=None, mesh=None):
     for _ in range(COMPILED_STEPS):
         dcn_cuda.launch_counts.clear()
         losses.append(float(step(images, target)["loss"]))
-        launches.append((dcn_cuda.launch_counts["dcn_fwd"],
-                         dcn_cuda.launch_counts["dcn_bwd"]))
+        launches.append(tuple(launch_record().values()))
     named = dict(task.model.named_parameters())
     state = opt.adam.state
     return {
@@ -3873,8 +4137,9 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
     COMPILED_EAGER eager runs and a graphed one from one state
     (``train_record``), each difference of the graphed run from the nearest
     eager run within COMPILED_SPREAD times the largest between two eager
-    runs, where that bound is within its COMPILED_CAPS cap; ``n_dcn`` * K
-    launches of each DCN kernel per step, replays included; the BatchNorm
+    runs, where that bound is within its COMPILED_CAPS cap; K forwards' and
+    backwards' launches of ``task.arch`` per step (``launches_of``), replays
+    included (``n_dcn``: its DCN layers); the BatchNorm
     statistics advanced once per micro-batch; ``one_step_checks``; both
     paths timed. With ``mesh``, every step runs over its data axis."""
     from centernet_tpu_torch.ops.dcn import DCN
@@ -3900,10 +4165,11 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
     bounds = {key: COMPILED_SPREAD * floor[key] for key in COMPILED_KEYS}
     held = [key for key in COMPILED_KEYS if bounds[key] <= COMPILED_CAPS[key]]
     milestone_lr = COMPILED_LR * 0.1
+    want = tuple(launches_of(task.arch, k, k).values())
     print(f"{label}: {COMPILED_STEPS} steps each, lr {COMPILED_LR} then "
           f"{milestone_lr} after update {COMPILED_MILESTONE}; graphed "
-          f"launches per step {g['launches'][-1]} (want "
-          f"{(n_dcn * k, n_dcn * k)}); losses eager "
+          f"launches per step {g['launches'][-1]} (want {want}, "
+          f"{'/'.join(COUNTED)}); losses eager "
           f"{[round(x, 4) for x in eager[0]['losses']]}", flush=True)
     print("  graphed vs the nearest eager run / the eager runs' largest "
           "difference / bound (cap): "
@@ -3923,7 +4189,7 @@ def train_graphs(task, label, images, target, card, k=1, clip=None,
         if key not in held:
             raise RuntimeError(f"{label}: {key} not comparable")
     for run in runs:
-        if any(n != (n_dcn * k, n_dcn * k) for n in run["launches"]):
+        if any(n != want for n in run["launches"]):
             raise RuntimeError(f"{label}: launches {run['launches']}")
         if run["tracked"] != {COMPILED_STEPS * k}:
             raise RuntimeError(f"{label}: BatchNorm statistics advanced "
@@ -3996,21 +4262,22 @@ def tta_graphs(dev, card, coco):
                  "--tta_bucket", bucket])
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        fwd = dcn_cuda.launch_counts["dcn_fwd"]
+        launches = launch_record()
+        want = launches_of("dla_34", 5 * MINI_EVAL, 0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"cli.test --flip --multi_scale --tta_bucket {bucket}: "
               f"{secs:.2f} s, {len(captured)} graphs captured, peak "
-              f"allocated {peak:.2f} GiB, dcn_fwd {fwd} (want "
-              f"{16 * 5 * MINI_EVAL}); AP {stats}")
-        if fwd != 16 * 5 * MINI_EVAL or not all(np.isfinite(v)
-                                                for v in stats.values()):
-            raise RuntimeError(f"cli.test --tta_bucket {bucket}: {fwd} "
-                               f"launches, {stats}")
+              f"allocated {peak:.2f} GiB, launches {launches} (want "
+              f"{want}); AP {stats}")
+        if launches != want or not all(np.isfinite(v)
+                                       for v in stats.values()):
+            raise RuntimeError(f"cli.test --tta_bucket {bucket}: launches "
+                               f"{launches}, {stats}")
         if (bucket == "0") != (not captured):
             raise RuntimeError(f"cli.test --tta_bucket {bucket}: "
                                f"{len(captured)} graphs captured")
         cli[bucket] = {"seconds": secs, "graphs": len(captured),
-                       "peak_gib": peak, "dcn_fwd": fwd}
+                       "peak_gib": peak, "launches": launches}
 
     hp = load_checkpoint_hparams(last)
     imgs = [img for img, _ in cli_det.eval_images(cli_det.CocoDetection(
@@ -4139,7 +4406,7 @@ for i in range(2, len(sys.argv), 3):
     dcn.launch_counts.clear()
     rows["graphed"] = call(imgs).cpu()
     torch.cuda.synchronize()
-    launches = {k: dcn.launch_counts[k] for k in ("dcn_fwd", "dcn_bwd")}
+    launches = {k: dcn.launch_counts[k] for k in cs.COUNTED}
     try:
         call(imgs[:1])
         wrong_shape = None
@@ -4200,13 +4467,14 @@ def export_graphed(dev, kind, workdir):
 def check_loaded_graphs(kind, live, got):
     """15(a): the loaded program as a graph (a replay) against the same
     program eager and against the live graph, rows as sets at 0; 16
-    dcn_fwd per replay and no dcn_bwd; a wrong shape refused ahead of the
+    dcn_fwd and 8 up_dw_fwd per replay and no backward; a wrong shape
+    refused ahead of the
     graph; one graph, and none for ``compiled=False``."""
     print(f"{kind}: {got['info']}; launches per replay {got['launches']}; "
           f"graphs {got['graphs']}")
-    if got["launches"] != {"dcn_fwd": 16, "dcn_bwd": 0}:
+    if got["launches"] != launches_of("dla_34", 1, 0):
         raise RuntimeError(f"{kind}: the loaded graph's launches per replay "
-                           f"{got['launches']}, not 16 dcn_fwd alone")
+                           f"{got['launches']}, not one forward's")
     if got["graphs"] != 1 or got["eager_graphed"]:
         raise RuntimeError(f"{kind}: graphs {got['graphs']}, compiled=False "
                            f"graphed {got['eager_graphed']}")
@@ -4346,7 +4614,8 @@ def spatial_graphs(task, mesh, card):
     """15(c): ``make_spatial_infer`` on the NCCL (1, 1) mesh as graphs (the
     default) against itself eager (rows as sets at 0) and against the
     single-device eager forward, at each GRAPHED_SPATIAL_HW in turn (the
-    second size a second graph); 16 dcn_fwd per replay; both paths timed.
+    second size a second graph); 16 dcn_fwd and 8 up_dw_fwd per replay;
+    both paths timed.
     Against the single device the rows are held by phase 13's rule
     (``row_errors`` at phase 4's tolerances, no row unmatched), as phase 13
     holds the gloo ranks' rows: the halo path runs each conv unpadded
@@ -4372,8 +4641,7 @@ def spatial_graphs(task, mesh, card):
         dcn_cuda.launch_counts.clear()
         rows = graphed(imgs)
         torch.cuda.synchronize()
-        launches = {k: dcn_cuda.launch_counts[k] for k in ("dcn_fwd",
-                                                           "dcn_bwd")}
+        launches = launch_record()
         one = task.forward_decode(imgs)
         diffs = {"graphed_vs_eager": rows_diff(rows, eager(imgs)),
                  "graphed_vs_single_device": rows_diff(rows, one)}
@@ -4393,7 +4661,7 @@ def spatial_graphs(task, mesh, card):
         if counts["unmatched"]:
             raise RuntimeError(f"{label}: rows unmatched against the single "
                                f"device: {counts}")
-        if launches != {"dcn_fwd": 16, "dcn_bwd": 0}:
+        if launches != launches_of("dla_34", 1, 0):
             raise RuntimeError(f"{label}: {launches} per replay")
         if graphed.graphed.graphs != n:
             raise RuntimeError(f"{label}: {graphed.graphed.graphs} graphs, "
@@ -4570,8 +4838,11 @@ def main() -> int:
     lib = dcn_cuda.build(verbose=True)
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
 
-    phase("3 kernel vs plain (dla_34 DCN shapes at 512x512, batch 4)")
+    phase("3 kernel vs plain (dla_34 DCN shapes at 512x512, batch 4; the "
+          "up kernels at batch 4 and 32)")
     rows = check_kernel(dev)
+    up_rows = check_up_kernels(
+        dev, [s for b in UP_BATCHES for s in dla34_up_shapes(b)], True)
 
     phase("4 serving slice: dla_34 detection serving, 512x512, bf16")
     task = CenterNetDetection("dla_34", dtype=torch.bfloat16, device=dev,
@@ -4587,15 +4858,14 @@ def main() -> int:
     results = [task.predict_batch(imgs, identity_metas(BATCH))
                for imgs in requests]
     serve_s = time.perf_counter() - t0
-    launches = dcn_cuda.launch_counts["dcn_fwd"]
+    launches = launch_record()
     for h in handles:
         h.remove()
     print(f"served {REQUESTS} requests of {BATCH} images in {serve_s:.2f} s "
-          f"(first request includes cuDNN warm-up); dcn_fwd launches: "
-          f"{launches}")
-    if launches != 16 * REQUESTS:
-        raise RuntimeError(f"expected {16 * REQUESTS} DCN kernel launches, "
-                           f"counted {launches}")
+          f"(first request includes cuDNN warm-up); launches: {launches}")
+    if launches != launches_of("dla_34", REQUESTS, 0):
+        raise RuntimeError(f"expected {launches_of('dla_34', REQUESTS, 0)} "
+                           f"kernel launches, counted {launches}")
     want_shapes = collections.Counter(
         {(hw, ci, co): n * REQUESTS for hw, ci, co, n in DLA34_DCN})
     if seen["shapes"] != want_shapes:
@@ -4744,7 +5014,7 @@ def main() -> int:
     gates = pose["gates"]
     torch.cuda.empty_cache()
 
-    phase("12 export and data parallelism: opcheck of both operators; the "
+    phase("12 export and data parallelism: opcheck of the operators; the "
           "dla_34 detection and pose serving programs (512x512, bf16, B4) "
           "in a fresh interpreter; two gloo ranks on the one card against "
           "one process; an NCCL group of one; the CLI's refusal")
@@ -4797,23 +5067,23 @@ def main() -> int:
             "per_shape": kernel_rows + more_rows,
         }
 
-    def by_path(name, serve, train):
-        return {"serve": serve, "train": train,
+    def by_path(name):
+        i = COUNTED.index(name)
+        return {"serve": launches[name], "train": train_launches[name],
                 "cli_train": cl["cli_train"][name],
                 "cli_resume": cl["cli_resume"][name],
                 "tta": cl["test_flip"][name] + cl["test_flip_multi_scale"][name],
                 "batched_eval": cl["test_batched"][name],
-                "resdcn_18_serve": other["resdcn_18"]["serve"]["launches"]
-                if name == "dcn_fwd" else 0,
+                "resdcn_18_serve":
+                    other["resdcn_18"]["serve"]["launches"][name],
                 "resdcn_18_train": other["resdcn_18"]["train"]["launches"][name],
-                "resdcn_101_serve": other["resdcn_101"]["serve"]["launches"]
-                if name == "dcn_fwd" else 0,
+                "resdcn_101_serve":
+                    other["resdcn_101"]["serve"]["launches"][name],
                 "resdcn_101_train":
                     other["resdcn_101"]["train"]["launches"][name],
                 "resdcn_18_cli_train": ol["resdcn_18"]["cli_train"][name],
                 "resdcn_18_tta": ol["resdcn_18"]["tta"][name],
-                "pose_serve": pose["serve"]["launches"]
-                if name == "dcn_fwd" else 0,
+                "pose_serve": pose["serve"]["launches"][name],
                 "pose_train": pose["train"]["launches"][name],
                 "pose_cli": pl["cli_train"][name],
                 "pose_tta": pl["tta"][name],
@@ -4835,7 +5105,7 @@ def main() -> int:
                 "graphed_serve_per_replay":
                     comp["serve"]["B4"]["launches_per_replay"][name],
                 "graphed_train_per_step": comp["train"]["B4"][
-                    "launches_per_step"][name == "dcn_bwd"],
+                    "launches_per_step"][i],
                 # phase 15: per replay of each loaded program's graph, per
                 # replayed step of the NCCL mesh train graph, per replay of
                 # the NCCL spatial graph at each size
@@ -4843,18 +5113,16 @@ def main() -> int:
                    gp["loaded"][kind]["launches_per_replay"][name]
                    for kind in ("detection", "multi_pose")},
                 "graphed_mesh_train_per_step": gp["nccl"]["train"][
-                    "launches_per_step"][name == "dcn_bwd"],
+                    "launches_per_step"][i],
                 **{f"graphed_spatial_{hw}_per_replay":
                    r["launches_per_replay"][name]
                    for hw, r in gp["nccl"]["spatial"].items()}}
 
     kernels = [
-        summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows,
-                by_path("dcn_fwd", launches, train_launches["dcn_fwd"]),
+        summary("dcn_fwd", KERNEL_SRC, KERNEL_TPU, rows, by_path("dcn_fwd"),
                 dcn_ms, other_rows),
         summary("dcn_bwd", BWD_KERNEL_SRC, BWD_KERNEL_TPU, bwd_rows,
-                by_path("dcn_bwd", 0, train_launches["dcn_bwd"]), bwd_ms,
-                other_bwd_rows),
+                by_path("dcn_bwd"), bwd_ms, other_bwd_rows),
     ]
     tta = cli["tta_shapes"]
     for k, which in zip(kernels, ("fwd", "bwd")):
@@ -4875,6 +5143,38 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], max(
         r["max_abs_err"] for r in sp["kernel_rows"]))
     kernels[0]["slab_shapes"] = sp["kernel_rows"]
+
+    def up_summary(name, which):
+        """The up kernel ``which`` ("fwd" or "bwd") over dla_34's eight
+        layers at B4 (as the DCN entries) and at B32: its time, the bound
+        and the library's (``F.conv_transpose2d`` and its autograd
+        backward), each summed over the layers."""
+        at = {b: [r for r in up_rows if r["dtype"] == "bfloat16"
+                  and r["shape"].startswith(f"B{b} ")] for b in UP_BATCHES}
+
+        def total(b, key):
+            return sum(r[key] * r["layers"] for r in at[b])
+
+        held = up_rows + cli["up_tta_rows"] + sp["up_kernel_rows"]
+        return {
+            "name": name, "route": "cuda", "source": UP_KERNEL_SRC,
+            "replaces": None, "launches": train_launches[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": max(r["max_abs_err"] for r in held),
+            # per B4 bf16 pass of the model: the 8 layers summed
+            "ms": total(BATCH, f"{which}_ms"),
+            "bound_ms": total(BATCH, f"{which}_bound_ms"),
+            "bound_by": "bytes",
+            "library_ms": total(BATCH, f"lib_{which}_ms"),
+            "b32": {"ms": total(32, f"{which}_ms"),
+                    "bound_ms": total(32, f"{which}_bound_ms"),
+                    "library_ms": total(32, f"lib_{which}_ms")},
+            "per_shape": up_rows,
+            "tta_shapes": len(cli["up_tta_rows"]) // 2,
+            "slab_shapes": len(sp["up_kernel_rows"]) // 2,
+        }
+
+    kernels += [up_summary("up_dw_fwd", "fwd"), up_summary("up_dw_bwd", "bwd")]
     print(json.dumps({"train": {
         "losses": losses, "grad_check": grad_check,
         "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
@@ -4887,7 +5187,8 @@ def main() -> int:
     print(json.dumps({"pose_and_radius": pose}))
     print(json.dumps({"export_and_data_parallel": dp}))
     print(json.dumps({"spatial": {k: v for k, v in sp.items()
-                                  if k != "kernel_rows"}}))
+                                  if k not in ("kernel_rows",
+                                               "up_kernel_rows")}}))
     print(json.dumps({"compiled": comp}))
     print(json.dumps({"graphed_paths": gp}))
     for name, rs in (("dcn_fwd", rows), ("dcn_bwd", bwd_rows)):

@@ -44,7 +44,7 @@ want = {"centernet_tpu_torch." + m for m in (
     "cli.common", "cli.detection", "cli.multi_pose", "cli.test",
     "data.coco", "data.loader", "data.transforms", "entry",
     "models.hourglass", "models.resnet", "models.resnet_dcn", "ops.halo",
-    "ops.nms",
+    "ops.nms", "ops.upsample",
     "parallel.mesh", "parallel.spatial", "parallel.trainer",
     "tasks.multi_pose",
     "utils.checkpoint", "utils.coco_eval", "utils.export", "utils.logging",
