@@ -6,7 +6,12 @@ the DCN kernels, from the plain reference and the published peaks
   size on the meta device under ``torch.utils.flop_counter``: every
   convolution, transpose convolution and the DCN layers' contractions (2 x 9
   Ci Co H W each); not BatchNorm, activations, sampling or the decode.
-  A training step counts three forwards (``TRAIN_FACTOR``).
+  What each path needs: serving counts the backbone and the last stack's
+  heads, whose maps it decodes; training counts every stack's heads, which
+  its loss supervises, and three forwards a step (``TRAIN_FACTOR``). The
+  served rows need nothing of an earlier stack's heads, so a program that
+  stops computing them serves the same work in less time, and must not
+  read as a loss of ``mfu``. For one stack both are the one forward.
 * ``dcn_layers``: (H, W, Ci, Co) of each DCN layer of one forward.
 * ``dcn_fwd_bound_s`` / ``dcn_bwd_bound_s``: the least time of one DCN
   forward / backward: each input read once and each output written once
@@ -40,7 +45,7 @@ def _meta_params(config):
 
 
 @functools.lru_cache(maxsize=None)
-def _walk(config_json: str):
+def _walk(config_json: str, every_stack: bool = False):
     from torch.utils.flop_counter import FlopCounterMode
 
     config = json.loads(config_json)
@@ -49,14 +54,16 @@ def _walk(config_json: str):
                      on_dcn=lambda name, x, co: layers.append(
                          (x.shape[2], x.shape[3], x.shape[1], co)))
     s = config["input_size"]
+    forward = ref_heads.stacks if every_stack else ref_heads.model
     with FlopCounterMode(display=False) as counter:
-        ref_heads.model(ctx, config, torch.empty(1, 3, s, s, device="meta"))
+        forward(ctx, config, torch.empty(1, 3, s, s, device="meta"))
     return float(counter.get_total_flops()), tuple(layers)
 
 
-def flops_per_image(config: dict) -> float:
-    """Operations of one forward of one image (see the module docstring)."""
-    return _walk(json.dumps(config, sort_keys=True))[0]
+def flops_per_image(config: dict, kind: str = "serve") -> float:
+    """Operations of one forward of one image as the ``kind`` of request
+    (``serve`` or ``train``) needs it (see the module docstring)."""
+    return _walk(json.dumps(config, sort_keys=True), kind == "train")[0]
 
 
 def dcn_layers(config: dict):

@@ -1,31 +1,16 @@
-"""Pieces the entries share: the reference run's precision and the seeded
-sample of judged requests."""
+"""Pieces the entries share: the reference's context and the seeded sample
+of judged requests."""
 
 from __future__ import annotations
 
-import contextlib
 import importlib
 
 import torch
 
 from .. import traffic as traffic_mod
+from ..reference import nn as ref_nn
 
 SAMPLE_STREAM = 4
-
-
-@contextlib.contextmanager
-def full_float32():
-    """float32 matrix products and convolutions without TF32 while the
-    reference runs."""
-    before = (torch.backends.cuda.matmul.allow_tf32,
-              torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = before
 
 
 def sample(seed: int, done: int, n: int):
@@ -36,6 +21,15 @@ def sample(seed: int, done: int, n: int):
     picked = set(g.choice(done - 1, size=n - 1, replace=False).tolist()
                  ) if n > 1 else set()
     return sorted(picked | {done - 1})
+
+
+def reference_ctx(config, params, **kwargs) -> ref_nn.Ctx:
+    """The plain reference's context over ``params``, with the
+    configuration's DCN clamp radii where it states them (a model with DCN
+    layers)."""
+    radii = {k: config[k] for k in ("dcn_radius", "dcn_radius_fine")
+             if k in config}
+    return ref_nn.Ctx(params, **radii, **kwargs)
 
 
 def reference_task(config):

@@ -46,7 +46,7 @@ class Entry:
 
     def _weights(self):
         return weights.make(self.config, self.seed, self.device,
-                            self.traffic["head_gain"])
+                            self.traffic)
 
     def request(self, i):
         rows = self.task.infer_decode(self.pool[i % len(self.pool)])
@@ -65,12 +65,10 @@ class Entry:
     def _reference_heads(self, i, round=ref_nn.identity):
         """The reference's heads of request i's batch, in blocks."""
         cfg = self.config
-        ctx = ref_nn.Ctx(self._weights(), round=round,
-                         dcn_radius=cfg["dcn_radius"],
-                         dcn_radius_fine=cfg["dcn_radius_fine"])
+        ctx = common.reference_ctx(cfg, self._weights(), round=round)
         images = self.pool[i % len(self.pool)]
         block = self.traffic.get("check_block", 8)
-        with torch.no_grad(), common.full_float32():
+        with torch.no_grad(), ref_nn.full_float32():
             for s in range(0, images.shape[0], block):
                 x = ref_heads.normalise(images[s:s + block].to(self.device),
                                         cfg["mean"], cfg["std"])

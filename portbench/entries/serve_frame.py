@@ -52,7 +52,7 @@ class Entry:
 
     def _weights(self):
         return weights.make(self.config, self.seed, self.device,
-                            self.traffic["head_gain"])
+                            self.traffic)
 
     def request(self, i):
         img, meta = self.task.prepare_image_fixed(
@@ -75,10 +75,8 @@ class Entry:
         cfg = self.config
         frame = torch.from_numpy(self.pool[i % len(self.pool)]).to(
             self.device)
-        ctx = ref_nn.Ctx(self._weights(), round=round,
-                         dcn_radius=cfg["dcn_radius"],
-                         dcn_radius_fine=cfg["dcn_radius_fine"])
-        with torch.no_grad(), common.full_float32():
+        ctx = common.reference_ctx(cfg, self._weights(), round=round)
+        with torch.no_grad(), ref_nn.full_float32():
             x, geometry = ref_letterbox.letterbox(
                 frame, cfg["input_size"], cfg["mean"], cfg["std"])
             heads = ref_heads.model(ctx, cfg, x.permute(2, 0, 1)[None])

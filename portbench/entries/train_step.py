@@ -12,7 +12,9 @@ runs three steps on the first three batches: replays of the captured
 graph, as every step of the window is. Those three are what the reference
 follows: their losses, each step's gradient as Adam holds it (from its
 first moments, ``(m_t - beta1 m_{t-1}) / (1 - beta1)``) and each leaf's
-change over the three. The window goes on from the fourth batch.
+change over the three. The window goes on from the fourth batch. The
+reference's loss is the task's loss averaged over the stacks' heads, as
+the port's tasks average it.
 """
 
 from __future__ import annotations
@@ -69,7 +71,7 @@ class Entry:
 
     def _weights(self):
         return weights.make(self.config, self.seed, self.device,
-                            self.traffic["head_gain"])
+                            self.traffic)
 
     def _feed(self, j):
         images, target = self.pool[j % len(self.pool)]
@@ -145,13 +147,11 @@ class Entry:
         start = {k: params[k].detach().clone() for k in leaves}
         adam = Adam({k: params[k] for k in leaves}, cfg["learning_rate"],
                     tuple(cfg["betas"]), cfg["adam_eps"])
-        ctx = ref_nn.Ctx(params, training=True, round=round,
-                         dcn_radius=cfg["dcn_radius"],
-                         dcn_radius_fine=cfg["dcn_radius_fine"],
-                         checkpoint_dcn=True)
+        ctx = common.reference_ctx(cfg, params, training=True, round=round,
+                                   checkpoint_dcn=True)
         losses, grads = [], []
         size = cfg["input_size"]
-        with common.full_float32():
+        with ref_nn.full_float32():
             for j in range(FOLLOWED):
                 images, target = self.pool[j]
                 x = ref_heads.normalise(images.to(self.device), cfg["mean"],
@@ -159,8 +159,9 @@ class Entry:
                 tgt = rtask.targets(cfg, {k: v.to(self.device)
                                           for k, v in target.items()},
                                     (size, size))
-                loss = rtask.loss(ref_heads.model(ctx, cfg, x), tgt,
-                                  cfg["loss_weights"])
+                loss = ref_heads.mean_loss(
+                    rtask.loss, ref_heads.stacks(ctx, cfg, x), tgt,
+                    cfg["loss_weights"])
                 for k in leaves:
                     params[k].grad = None
                 loss.backward()

@@ -23,11 +23,11 @@ same state and rows:
 * ``grad_gap``: the first step's gradient, by its leaves' norms: the
   worst leaf's |norm - reference norm| over the larger of its reference
   norm and the median leaf's reference norm; ``grad_median_gap`` the
-  median leaf's gap; ``heads_grad_gap`` the worst of the heads' leaves
-  (the last layers, which the backward reaches before the chaos of
-  flipped ReLUs builds up); ``heads_grad_gap2`` and ``3`` the same of the
-  second and third steps, whose weights Adam's first, sign-like updates
-  have already set apart on both sides (read, not compared);
+  median leaf's gap; ``heads_grad_gap`` the worst of the heads' leaves,
+  every stack's (the last layers, which the backward reaches before the
+  chaos of flipped ReLUs builds up); ``heads_grad_gap2`` and ``3`` the same
+  of the second and third steps, whose weights Adam's first, sign-like
+  updates have already set apart on both sides (read, not compared);
 * ``update_gap``: the same for each leaf's change over the three steps;
   ``update_median_gap``: the gap of the median leaf's change, over the
   reference's.

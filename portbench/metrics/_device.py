@@ -20,12 +20,13 @@ def rate(r):
 
 
 def mfu(r, factor):
-    """Operations of ``factor`` forwards per image (the benchmark's count)
-    times the window's images per second, over the bf16 peak, in %."""
+    """Operations of ``factor`` forwards per image (the benchmark's count for
+    the cell's kind of request) times the window's images per second, over
+    the bf16 peak, in %."""
     images = rate(r)
     if not images:
         return None
-    flops = factor * r.counts.flops_per_image(r.config)
+    flops = factor * r.counts.flops_per_image(r.config, r.kind)
     peak = r.counts.peak_flops(r.config["compute_dtype"])
     return 100.0 * flops * images / peak
 

@@ -96,12 +96,15 @@ def _ida_up(ctx: Ctx, name: str, layers: List, factors: Sequence[int]):
     return layers
 
 
-def backbone(ctx: Ctx, x, levels: Sequence[int] = (1, 1, 1, 2, 2, 1),
-             channels: Sequence[int] = (16, 32, 64, 128, 256, 512),
-             down_ratio: int = 4, last_level: int = 5):
+def head_width(config: dict) -> int:
+    return config["channels"][int(math.log2(config["down_ratio"]))]
+
+
+def backbone(ctx: Ctx, x, config: dict, last_level: int = 5):
     """Normalised images [B,3,H,W] -> the stride-``down_ratio`` feature map
-    [B, channels[log2(down_ratio)], H/4, W/4]."""
-    ch = list(channels)
+    [B, channels[log2(down_ratio)], H/4, W/4] (one stack)."""
+    levels, down_ratio = config["levels"], config["down_ratio"]
+    ch = list(config["channels"])
     b = PREFIX + "base."
     y = _conv_bn_relu(ctx, b + "base_layer", x, 1, 3)
     y = _conv_bn_relu(ctx, b + "level0", y, 1, 1)
@@ -146,16 +149,15 @@ def _up_path(channels, down_ratio: int, last_level: int):
     return idas
 
 
-def param_shapes(levels: Sequence[int] = (1, 1, 1, 2, 2, 1),
-                 channels: Sequence[int] = (16, 32, 64, 128, 256, 512),
-                 down_ratio: int = 4, last_level: int = 5):
+def param_shapes(config: dict, last_level: int = 5):
     """name -> (shape, kind) of every backbone parameter and buffer, in a
     fixed order; ``kind`` says how the benchmark seeds it (``conv``,
     ``bn_weight``, ``bn_bias``, ``bn_mean``, ``bn_var``, ``count``,
     ``dcn_weight``, ``dcn_bias``, ``offset_weight``, ``offset_bias``,
     ``bilinear``)."""
     out = {}
-    ch = list(channels)
+    levels, down_ratio = config["levels"], config["down_ratio"]
+    ch = list(config["channels"])
 
     def conv_(name, cin, cout, k):
         out[name + ".weight"] = ((cout, cin, k, k), "conv")

@@ -10,6 +10,8 @@ BatchNorm and the sampling's arithmetic stay in float32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -19,6 +21,21 @@ CLIP_EPS = 1.0 / 64.0
 
 def identity(t: torch.Tensor) -> torch.Tensor:
     return t
+
+
+@contextlib.contextmanager
+def full_float32():
+    """float32 matrix products and convolutions without TF32 while the
+    reference runs."""
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before
 
 
 def _to_fp8(d: torch.Tensor, fmt) -> torch.Tensor:

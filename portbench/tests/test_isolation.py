@@ -110,3 +110,51 @@ def test_new_files_are_found_by_name(tmp_path):
     assert set(res["metrics"]) == {"requests_done", "setup_s"}
     after = {p: p.read_bytes() for p in before}
     assert after == before
+
+
+def test_two_stack_files_are_found_by_name(tmp_path, monkeypatch):
+    """A two-stack configuration (the narrow hourglass, drawn statistics,
+    heads scaled to their input by ``head_input_rms``, no DCN), a serving
+    and a training cell on the mixes that are there, and their limits,
+    added as new files and appends only, run ``correct``; the reference
+    serves the last stack's heads and trains on the mean over both
+    stacks'. The port builds the narrow net as its own tests patch
+    ``create_model``; its code is unchanged."""
+    from portbench import harness
+
+    tiny.narrow_hourglass(monkeypatch)
+    root = tiny.make(tmp_path)
+    bench = root / "portbench"
+    before = {p: p.read_bytes() for p in bench.rglob("*") if p.is_file()}
+    base = json.loads((bench / "configs/det_dla34.json").read_text())
+    cfg = tiny.hourglass_config(base, name="det_hg_narrow",
+                                compute_dtype="float32")
+    (bench / "configs/det_hg_narrow.json").write_text(json.dumps(cfg))
+    for traffic in ("serve_b32", "train_b32"):
+        (bench / f"limits/det_hg_narrow.{traffic}.json").write_bytes(
+            (bench / f"limits/det_dla34.{traffic}.json").read_bytes())
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    manifest["configs"].append({
+        "name": "det_hg_narrow", "source": "https://arxiv.org/abs/1904.07850",
+        "file": "portbench/configs/det_hg_narrow.json", "reduced": [
+            "channels", "levels", "cnv_dim"], "why": "a test"})
+    cells = {"serve_b32": ["serve_img_per_s", "serve_p95_ms"],
+             "train_b32": ["train_img_per_s"]}
+    for traffic, metrics in cells.items():
+        name = f"det_hg_narrow.{traffic}"
+        manifest["workloads"].append({
+            "name": name, "config": "det_hg_narrow", "traffic": traffic,
+            "chips": 1, "why": "a test"})
+        for m in manifest["end_to_end"]:
+            if m["name"] in metrics:
+                m["workloads"].append(name)
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))
+
+    for traffic, metrics in cells.items():
+        # serving's p95 needs two requests in the window, on a loaded CPU
+        seconds = 3.0 if traffic.startswith("serve") else 1.0
+        res = harness.run(root, f"det_hg_narrow.{traffic}", 13, seconds,
+                          False, "cpu", time.time())
+        assert res["correct"], res["checks"]
+        assert set(res["metrics"]) == {*metrics, "setup_s"}
+    assert {p: p.read_bytes() for p in before} == before

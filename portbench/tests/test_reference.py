@@ -1,6 +1,8 @@
 """The plain reference against the port, at a small size on the CPU, in
 float32: the same layout, forward, decode, letterbox and first training
-step. (The benchmark's comparison on the card is at the cells' sizes.)"""
+step, for dla_34 and for a narrow two-stack hourglass (``tiny``), whose
+full-width layout is held on the meta device. (The benchmark's comparison
+on the card is at the cells' sizes.)"""
 
 from __future__ import annotations
 
@@ -15,11 +17,22 @@ from portbench.reference import detection as ref_det
 from portbench.reference import heads as ref_heads
 from portbench.reference import letterbox as ref_letterbox
 from portbench.reference import nn as ref_nn
+from portbench.tests import tiny
 from portbench.tests.tiny import ROOT
 
 CONFIGS = {n: json.loads((ROOT / f"portbench/configs/{n}.json").read_text())
            for n in ("det_dla34", "pose_dla34")}
+CONFIGS["det_hg_narrow"] = tiny.hourglass_config(CONFIGS["det_dla34"],
+                                                 input_size=64)
+CONFIGS["pose_hg_narrow"] = tiny.hourglass_config(CONFIGS["pose_dla34"],
+                                                  input_size=64)
 SEED = 2 ** 31 + 5
+MIX = tiny.mix("serve_b32")  # what the hourglass's heads are scaled on
+
+
+@pytest.fixture(autouse=True)
+def narrow_hourglass(monkeypatch):
+    tiny.narrow_hourglass(monkeypatch)
 
 
 def _task(cfg, w):
@@ -38,7 +51,7 @@ def _images(n=2, size=64, seed=0):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_layout_is_the_ports(name):
     cfg = CONFIGS[name]
-    task = _task(cfg, weights.make(cfg, SEED, "cpu", 3.0))
+    task = _task(cfg, weights.make(cfg, SEED, "cpu", MIX))
     port_shapes = {k: tuple(v.shape)
                    for k, v in task.model.state_dict().items()}
     ref_shapes = {k: tuple(s)
@@ -46,19 +59,44 @@ def test_layout_is_the_ports(name):
     assert port_shapes == ref_shapes
 
 
+def test_hourglass_layout_is_the_ports_at_full_width(monkeypatch):
+    """Hourglass-104 at its published widths (both stacks' heads at
+    ``cnv_dim``), the port's model built on the meta device."""
+    from centernet_tpu_torch.models import create_model
+    from centernet_tpu_torch.tasks import base
+    from centernet_tpu_torch.tasks.base import CenterNetModel
+
+    monkeypatch.setattr(base, "create_model", create_model)
+    cfg = dict(CONFIGS["det_hg_narrow"], levels=[2, 2, 2, 2, 2, 4],
+               channels=[256, 256, 384, 384, 384, 512], cnv_dim=256)
+    with torch.device("meta"):
+        model = CenterNetModel("hourglass", cfg["heads"], cfg["head_conv"])
+    port_shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    ref_shapes = {k: tuple(s)
+                  for k, (s, _) in ref_heads.param_shapes(cfg).items()}
+    assert port_shapes == ref_shapes
+    assert list(ref_shapes)[-1].startswith("heads.1.")
+    assert ref_shapes["heads.1.heatmap.fc.0.weight"] == (256, 256, 3, 3)
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_forward_matches_the_port(name):
+    """Every stack's heads; ``model`` is the last stack's."""
     cfg = CONFIGS[name]
-    w = weights.make(cfg, SEED, "cpu", 3.0)
+    w = weights.make(cfg, SEED, "cpu", MIX)
     task = _task(cfg, w)
     images = _images()
-    got = task.apply(images)[-1]
+    got = task.apply(images)
     ctx = ref_nn.Ctx({k: v.clone() for k, v in w.items()})
-    want = ref_heads.model(ctx, cfg, ref_heads.normalise(
-        images, cfg["mean"], cfg["std"]))
-    for k, v in want.items():
-        scale = float(v.abs().max())
-        assert float((got[k] - v).abs().max()) <= 1e-4 * scale, k
+    x = ref_heads.normalise(images, cfg["mean"], cfg["std"])
+    want = ref_heads.stacks(ctx, cfg, x)
+    assert len(got) == len(want) == cfg.get("num_stacks", 1)
+    for stack_got, stack_want in zip(got, want):
+        for k, v in stack_want.items():
+            scale = float(v.abs().max())
+            assert float((stack_got[k] - v).abs().max()) <= 1e-4 * scale, k
+    last = ref_heads.model(ctx, cfg, x)
+    assert all(torch.equal(last[k], want[-1][k]) for k in want[-1])
 
 
 def test_decode_matches_the_port():
@@ -119,7 +157,7 @@ def test_pose_decode_matches_the_port():
 
 def test_letterbox_matches_the_port():
     cfg = CONFIGS["det_dla34"]
-    task = _task(cfg, weights.make(cfg, SEED, "cpu", 3.0))
+    task = _task(cfg, weights.make(cfg, SEED, "cpu", MIX))
     frame = torch.rand(48, 64, 3, generator=torch.Generator().manual_seed(5))
     got, meta = task.prepare_image_fixed(frame.numpy(), 64)
     want, (sx, sy, left, top) = ref_letterbox.letterbox(frame, 64, cfg["mean"],
@@ -149,7 +187,7 @@ def test_first_train_step_matches_the_port(name):
     target = {k: torch.from_numpy(v) for k, v in traffic.annotations(
         mix, sizes, 64, 8, SEED, 0).items()}
     images = _images()
-    w = weights.make(cfg, SEED, "cpu", 3.0)
+    w = weights.make(cfg, SEED, "cpu", MIX)
     task = _task(cfg, {k: v.clone() for k, v in w.items()})
     opt = task.configure_optimizer(1)
     stats = make_train_step(task, opt)(images, target)
@@ -165,19 +203,20 @@ def test_first_train_step_matches_the_port(name):
     for k in leaves:
         params[k].requires_grad_(True)
     ctx = ref_nn.Ctx(params, training=True)
-    loss = rtask.loss(ref_heads.model(ctx, cfg, ref_heads.normalise(
-        images, cfg["mean"], cfg["std"])), rtask.targets(
-            cfg, target, (64, 64)), cfg["loss_weights"])
+    loss = ref_heads.mean_loss(rtask.loss, ref_heads.stacks(
+        ctx, cfg, ref_heads.normalise(images, cfg["mean"], cfg["std"])),
+        rtask.targets(cfg, target, (64, 64)), cfg["loss_weights"])
     loss.backward()
     want = {k: 0.0 if params[k].grad is None else float(
         torch.linalg.vector_norm(params[k].grad)) for k in leaves}
     assert float(stats["loss"]) == pytest.approx(loss.item(), rel=1e-5)
     assert judge.leaf_gap(got, want, want) < 2e-2
+    assert all(v > 0 for k, v in want.items() if k.startswith("heads."))
 
 
 def test_fp8_control_is_coarser_than_bfloat16():
     cfg = CONFIGS["det_dla34"]
-    w = weights.make(cfg, SEED, "cpu", 3.0)
+    w = weights.make(cfg, SEED, "cpu", MIX)
     x = ref_heads.normalise(_images(), cfg["mean"], cfg["std"])
 
     def heads(round):

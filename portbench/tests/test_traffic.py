@@ -77,9 +77,9 @@ def test_letterbox_keeps_the_frame_inside():
 
 def test_weights_repeat_per_seed():
     cfg = json.loads((ROOT / "portbench/configs/det_dla34.json").read_text())
-    a = weights.make(cfg, SEED, "cpu", 3.0)
-    b = weights.make(cfg, SEED, "cpu", 3.0)
-    c = weights.make(cfg, SEED + 1, "cpu", 3.0)
+    a = weights.make(cfg, SEED, "cpu", {"head_gain": 3.0})
+    b = weights.make(cfg, SEED, "cpu", {"head_gain": 3.0})
+    c = weights.make(cfg, SEED + 1, "cpu", {"head_gain": 3.0})
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["backbone.base.level0.0.weight"],
                            c["backbone.base.level0.0.weight"])

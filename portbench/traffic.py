@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 IMAGE_STREAM, ANNOTATION_STREAM, ORDER_STREAM = 1, 2, 3
+CALIBRATION_STREAM = 5  # the heads' calibration batch (weights.py)
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
@@ -54,10 +55,11 @@ def frame_sizes(traffic: dict, n: int, seed: int) -> List[tuple]:
     return [order[i] for i in perm]
 
 
-def frames(traffic: dict, sizes: List[tuple], seed: int, device
-           ) -> List[torch.Tensor]:
-    """BGR [0, 1] float32 [H, W, 3] frames on ``device``, one per size."""
-    gen = torch_generator(seed, IMAGE_STREAM, device)
+def frames(traffic: dict, sizes: List[tuple], seed: int, device,
+           stream: int = IMAGE_STREAM) -> List[torch.Tensor]:
+    """BGR [0, 1] float32 [H, W, 3] frames on ``device``, one per size,
+    drawn on the seed's ``stream``."""
+    gen = torch_generator(seed, stream, device)
     cell = traffic.get("pattern_px", 32)
     noise = traffic.get("noise", 0.08)
     out = []

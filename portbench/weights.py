@@ -19,16 +19,48 @@ tensor is a slice of it, scaled into its range:
   them (no draw).
 
 The same seed gives the same tensors on the same device type.
+
+A residual trunk needs one more key. Its drawn statistics (near
+identity) leave every residual sum unnormalised: a seeded hourglass trunk
+ends at an RMS of 1-20 (the finding behind ``chip_smoke.py``'s
+``HEAD_INPUT_RMS``; 3.6 and 18 for Hourglass-104's two stacks at 512 x
+512), its heads at tens of units and every heatmap score at 1.0, where a
+comparison of scores tells nothing. ``"head_input_rms": r`` scales each
+stack's first head convs as if that stack's map had RMS r on a
+calibration batch, so that the heads' gain is the traffic mix's for a map
+of that scale (dla_34's is 0.15 at 512 x 512; the gains were chosen on
+it). The batch is ``CALIBRATION_FRAMES`` frames that the traffic
+generator draws from the cell's mix (its sizes, pattern and noise) on a
+seed stream of their own, letterboxed to the input size as the mix's
+inputs are, through the plain reference in float32 without TF32.
+(BatchNorm statistics set to such a batch's, as a trained network holds
+them, make a seeded deep trunk chaotic: bfloat16's rounding then moves the
+served heads as far as float8's does, so the statistics stay drawn.)
+
+The calibration runs once per process (``calibrate``, which the harness
+calls before set-up's clock and peak, as the reference's judging is kept
+out of them); every call of ``make`` at that configuration, mix, seed and
+device returns the same tensors, so the program and each reference call
+hold identical weights. Without the key nothing changes.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import time
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
-from .reference.heads import param_shapes
+from . import traffic
+from .reference import nn as ref_nn
+from .reference.heads import features, normalise, param_shapes
+
+CALIBRATION_FRAMES = 8
+# (configuration, mix, seed, device) -> each first head conv's scale
+_CALIBRATED: Dict[tuple, Dict[str, float]] = {}
 
 # kind -> (lo, hi) of a uniform draw
 _RANGES = {
@@ -56,9 +88,47 @@ def bilinear_kernel(k: int, device) -> torch.Tensor:
     return wi[:, None] * wi[None, :]
 
 
-def make(config: dict, seed: int, device, head_gain: float
+def make(config: dict, seed: int, device, mix: dict
          ) -> Dict[str, torch.Tensor]:
-    """name -> tensor on ``device`` for the configuration's model."""
+    """name -> tensor on ``device`` for the configuration's model, with the
+    heads' gain of ``mix``, the cell's traffic mix (which is also what the
+    heads are scaled on, where the configuration asks for it)."""
+    out = _draw(config, seed, device, mix["head_gain"])
+    if "head_input_rms" in config:
+        calibrate(config, mix, seed, device)
+        for name, scale in _CALIBRATED[_key(config, mix, seed,
+                                            device)].items():
+            out[name] = out[name] * scale
+    return out
+
+
+def calibrate(config: dict, mix: dict, seed: int, device) -> float:
+    """Makes the calibration that ``make`` reads where the configuration
+    asks for one, and returns the seconds of its reference forward (0 where
+    there is none to make)."""
+    key = _key(config, mix, seed, device)
+    if "head_input_rms" not in config or key in _CALIBRATED:
+        return 0.0
+    drawn = _draw(config, seed, device, mix["head_gain"])
+    cuda = torch.device(device).type == "cuda"
+    if cuda:  # cuDNN's start, which the program pays anyway, before the clock
+        z = torch.zeros(1, 1, 1, 1, device=device)
+        F.conv2d(z, z)
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    _CALIBRATED[key] = _head_scales(config, mix, seed, device, drawn)
+    if cuda:
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def _key(config: dict, mix: dict, seed: int, device) -> tuple:
+    return (json.dumps(config, sort_keys=True),
+            json.dumps(mix, sort_keys=True), seed, str(torch.device(device)))
+
+
+def _draw(config: dict, seed: int, device, head_gain: float
+          ) -> Dict[str, torch.Tensor]:
     shapes = param_shapes(config)
     drawn = [(n, s, k) for n, (s, k) in shapes.items()
              if k in _RANGES or k in _GAINS]
@@ -85,3 +155,29 @@ def make(config: dict, seed: int, device, head_gain: float
             out[name] = bilinear_kernel(shape[-1], device).expand(
                 shape).contiguous()
     return {name: out[name] for name in shapes}
+
+
+def calibration_batch(config: dict, mix: dict, seed: int, device
+                      ) -> torch.Tensor:
+    """The calibration batch: normalised NCHW float32 images of the
+    configuration's input size, letterboxed from the mix's frames."""
+    sizes = traffic.frame_sizes(mix, CALIBRATION_FRAMES, seed)
+    frames = traffic.frames(mix, sizes, seed, device,
+                            stream=traffic.CALIBRATION_STREAM)
+    u8 = traffic.letterboxed_uint8(frames, config["input_size"])
+    return normalise(u8.to(device), config["mean"], config["std"])
+
+
+def _head_scales(config: dict, mix: dict, seed: int, device,
+                 drawn: dict) -> Dict[str, float]:
+    """One eval forward of the plain reference over the calibration batch;
+    each stack's first head convs' scale (see the module docstring)."""
+    with torch.no_grad(), ref_nn.full_float32():
+        feats = features(ref_nn.Ctx(drawn), config, calibration_batch(
+            config, mix, seed, device))
+    scales = {}
+    for i, f in enumerate(feats):
+        scale = config["head_input_rms"] / float(f.square().mean().sqrt())
+        scales.update({f"heads.{i}.{name}.fc.0.weight": scale
+                       for name in config["heads"]})
+    return scales
