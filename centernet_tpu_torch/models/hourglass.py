@@ -149,14 +149,20 @@ class HourglassNet(nn.Module):
                                     for _ in range(num_stacks - 1))
 
     def forward(self, x) -> List[torch.Tensor]:
+        """Per stack its map, in the spans ``backbone/pre``,
+        ``backbone/stack{i}`` (its hourglass and 3x3 conv) and
+        ``backbone/merge{i}`` (the merge into the next stack's input)."""
         with span("backbone"):
-            inter = self.pre(x)
+            with span("pre"):
+                inter = self.pre(x)
             outs = []
             for ind in range(self.num_stacks):
-                cnv = self.cnvs[ind](self.kps[ind](inter))
+                with span(f"stack{ind}"):
+                    cnv = self.cnvs[ind](self.kps[ind](inter))
                 outs.append(cnv)
                 if ind < self.num_stacks - 1:
-                    inter = F.relu(self.inters_[ind](inter)
-                                   + self.cnvs_[ind](cnv))
-                    inter = self.inters[ind](inter)
+                    with span(f"merge{ind}"):
+                        inter = F.relu(self.inters_[ind](inter)
+                                       + self.cnvs_[ind](cnv))
+                        inter = self.inters[ind](inter)
             return outs

@@ -17,7 +17,9 @@
   ``utils/graphs.py::resolve_compiled``) its forward + decode runs as one
   captured CUDA graph per input signature (``serving``), the port's
   counterpart of the JAX tasks' jitted ``_infer_decode_jit``;
-  ``compiled=False`` runs it eagerly.
+  ``compiled=False`` runs it eagerly. A large host batch is served in two
+  pieces (``serve_split``) so that most of its upload overlaps the card's
+  work.
 * ``Optimizer``: fused Adam whose update a captured train step can hold
   (its learning rate and step counts are tensors on the parameters'
   device), and its MultiStep schedule, stepped on the host after each
@@ -55,6 +57,22 @@ def arch_num_stacks(arch: str) -> int:
 
 def arch_test_padding(arch: str) -> int:
     return 127 if "hourglass" in arch else 31
+
+
+SERVE_SPLIT_MIN = 32  # the smallest host batch served in two pieces
+SERVE_FIRST_SHARE = 4  # the first piece is this share of the batch
+
+
+def serve_split(batch: int) -> int:
+    """The first piece of a served host batch (``GraphedCall``'s ``split``),
+    or 0 to serve it whole. The card waits for the first piece's upload
+    alone; the rest's upload overlaps the first piece's replay. A batch of
+    ``SERVE_SPLIT_MIN`` images or more is split at its
+    1/``SERVE_FIRST_SHARE``: a second replay costs each layer's fixed
+    latency again, which a smaller batch's upload does not repay."""
+    if batch < SERVE_SPLIT_MIN:
+        return 0
+    return batch // SERVE_FIRST_SHARE
 
 
 def resolve_device(device=None) -> torch.device:
@@ -108,7 +126,8 @@ def resize_bilinear(img: torch.Tensor, out_hw: Tuple[int, int]
 
 class CenterNetModel(nn.Module):
     """Backbone + one CenterHead per stack; forward returns, per stack, a
-    dict of NCHW f32 head outputs."""
+    dict of NCHW f32 head outputs. The heads run in the span ``heads``,
+    and with more than one stack each stack's in ``heads/stack{i}``."""
 
     def __init__(self, arch: str, heads: Mapping[str, int], head_conv: int,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
@@ -139,7 +158,13 @@ class CenterNetModel(nn.Module):
         else:
             feats = self.backbone(x)
         with span("heads"):
-            return [head(f) for head, f in zip(self.heads, feats)]
+            if len(self.heads) == 1:
+                return [head(f) for head, f in zip(self.heads, feats)]
+            outs = []
+            for i, (head, f) in enumerate(zip(self.heads, feats)):
+                with span(f"stack{i}"):
+                    outs.append(head(f))
+            return outs
 
 
 class Optimizer:
@@ -248,7 +273,8 @@ class CenterNet:
                            if self.device.type == "cuda" else None)
         self.serving = None if not self.compiled else GraphedCall(
             self.forward_decode, self.graph_pool,
-            before_replay=cast_refresher(self.model), name="serve")
+            before_replay=cast_refresher(self.model), name="serve",
+            split=serve_split)
 
     def hparams(self) -> Dict[str, Any]:
         """What rebuilds this task from a checkpoint alone (``tasks.

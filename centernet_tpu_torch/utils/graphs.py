@@ -28,6 +28,14 @@ included; ``torch.compile`` plays no part.
   the launches of the hand-written kernels that the capture recorded are
   added to ``ops.dcn_cuda.launch_counts`` per replay. The outputs are
   cloned before they are returned, since the next replay overwrites them.
+* Split calls (``split``, serving's ``tasks/base.py::serve_split``): a
+  call whose first argument is a host batch that ``split`` names a first
+  piece for runs as two pieces, that piece and the rest, each a call of
+  its own signature, and returns their output tensors joined along the
+  batch. Each piece's host arguments go to its buffers on the pool's
+  upload stream, so the rest's upload overlaps the first piece's replay:
+  the card waits only for the first piece's upload. A body that treats
+  the images of a batch apart (serving) gives the same rows either way.
 * Tracing (``utils/profiling.py``): each call is a span ``graphs.call``
   whose argument is the call's ordinal, holding ``graphs.copy_in`` (the
   copies into the buffers), ``graphs.warm_up``, ``graphs.capture``,
@@ -128,14 +136,22 @@ def no_collection():
 
 
 class GraphPool:
-    """What the graphs of one task share: a private memory pool and the side
-    stream they are warmed up and captured on."""
+    """What the graphs of one task share: a private memory pool, the side
+    stream they are warmed up and captured on, and the stream that split
+    calls upload on."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device)
         self.handle = None
         self.graphs = weakref.WeakSet()  # the live graphs of the pool
+        self._upload = None
+
+    def upload_stream(self) -> torch.cuda.Stream:
+        """The stream that split calls upload their pieces on."""
+        if self._upload is None:
+            self._upload = torch.cuda.Stream(self.device)
+        return self._upload
 
     def next_handle(self):
         """The pool for the next capture. The allocator ends a private pool
@@ -179,6 +195,7 @@ class _Entry:
         self.launches = None
         self.marks = ()
         self.replayed = None
+        self.read = None  # after its last run, where its calls are split
 
 
 class GraphedCall:
@@ -191,12 +208,14 @@ class GraphedCall:
     def __init__(self, body: Callable, pool: GraphPool,
                  before_replay: Optional[Callable[[], Any]] = None,
                  after_replay: Optional[Callable[[], Any]] = None,
-                 name: str = "graph"):
+                 name: str = "graph",
+                 split: Optional[Callable[[int], int]] = None):
         self.body = body
         self.pool = pool
         self.before_replay = before_replay
         self.after_replay = after_replay
         self.name = name
+        self.split = split
         self.entries: Dict[tuple, _Entry] = {}
 
     @property
@@ -211,6 +230,32 @@ class GraphedCall:
 
     def _call(self, call: int, args, static):
         args = [None if a is None else torch.as_tensor(a) for a in args]
+        first = self._first_piece(args)
+        if not first:
+            return self._piece(call, args, static, staged=False)
+        batch = args[0].shape[0]
+        return torch.cat([
+            self._piece(call, [None if a is None else a[lo:hi] for a in args],
+                        static, staged=True)
+            for lo, hi in ((0, first), (first, batch))])
+
+    def _first_piece(self, args) -> int:
+        """The images of a call's first piece, or 0 to run it whole: a call
+        is split where ``split`` names a first piece for the leading batch
+        of its first argument, a host tensor whose batch every tensor
+        argument shares (an upload to hide)."""
+        if (self.split is None or not args or args[0] is None
+                or args[0].ndim == 0):
+            return 0
+        batch = args[0].shape[0]
+        if args[0].device.type != "cpu" or any(
+                a is not None and (a.ndim == 0 or a.shape[0] != batch)
+                for a in args):
+            return 0
+        first = self.split(batch)
+        return first if 0 < first < batch else 0
+
+    def _piece(self, call: int, args, static, staged: bool):
         key = signature(args, static)
         entry = self.entries.get(key)
         fresh = entry is None
@@ -219,20 +264,44 @@ class GraphedCall:
                 a.shape, dtype=a.dtype, device=self.pool.device)
                 for a in args])
         with span("graphs.copy_in"):
-            for buf, a in zip(entry.inputs, args):
-                if buf is not None:
-                    buf.copy_(a)
+            if staged:
+                self._upload(entry, args)
+            else:
+                for buf, a in zip(entry.inputs, args):
+                    if buf is not None:
+                        buf.copy_(a)
         if fresh:
             with span("graphs.warm_up"):
                 out = self._warm_up(entry, static)
             self.entries[key] = entry
-            return out
-        if entry.graph is None:
-            with span("graphs.capture"):
-                self._capture(entry, static)
-        out = self._replay(entry)
-        entry.replayed = call
+        else:
+            if entry.graph is None:
+                with span("graphs.capture"):
+                    self._capture(entry, static)
+            out = self._replay(entry)
+            entry.replayed = call
+        if staged:
+            entry.read.record(torch.cuda.current_stream(self.pool.device))
         return out
+
+    def _upload(self, entry: _Entry, args) -> None:
+        """A piece's arguments into its signature's buffers: host tensors
+        on the pool's upload stream, once the signature's last run has read
+        its buffers (so the copy overlaps whatever else the card runs, the
+        call's earlier piece), device tensors on the current stream."""
+        current = torch.cuda.current_stream(self.pool.device)
+        up = self.pool.upload_stream()
+        if entry.read is None:
+            entry.read = torch.cuda.Event()
+        with torch.cuda.stream(up):
+            up.wait_event(entry.read)
+            for buf, a in zip(entry.inputs, args):
+                if buf is not None and a.device.type == "cpu":
+                    buf.copy_(a)
+        current.wait_stream(up)
+        for buf, a in zip(entry.inputs, args):
+            if buf is not None and a.device.type != "cpu":
+                buf.copy_(a)
 
     def _warm_up(self, entry: _Entry, static):
         current = torch.cuda.current_stream(self.pool.device)

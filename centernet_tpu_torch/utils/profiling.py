@@ -138,19 +138,30 @@ class DeviceSpans:
         self.readings: Dict[str, Deque[Tuple[int, float]]] = {}
         self.replays = 0  # replays seen while a profiler recorded
         self.skipped = 0  # of those, readings skipped (still running)
+        self._dropped = None  # the last call that a skipped piece dropped
 
     def clear(self) -> None:
         self.readings.clear()
         self.replays = self.skipped = 0
+        self._dropped = None
 
     def read(self, graph: str, marks, call: int) -> None:
         """Keep the times of the replay of call ``call`` of ``graph``, whose
         capture holds ``marks``, if its events have all been reached; else
         count it skipped. A path met more than once in a replay (a
-        micro-batch loop) reads as the sum of its spans."""
+        micro-batch loop) reads as the sum of its spans, and so does a call
+        split into pieces (``GraphedCall``'s ``split``: each piece one
+        replay of its own graph): a call with a piece skipped keeps no
+        reading."""
         self.replays += 1
+        if call == self._dropped:
+            return
         if not all(end.query() for _, _, end in marks):
             self.skipped += 1
+            self._dropped = call
+            for readings in self.readings.values():
+                if readings and readings[-1][0] == call:
+                    readings.pop()
             return
         ms: Dict[str, float] = {}
         for path, start, end in marks:
@@ -159,7 +170,11 @@ class DeviceSpans:
             key = f"{graph}/{path}"
             if key not in self.readings:
                 self.readings[key] = collections.deque(maxlen=self.keep)
-            self.readings[key].append((call, v))
+            readings = self.readings[key]
+            if readings and readings[-1][0] == call:
+                readings[-1] = (call, readings[-1][1] + v)
+            else:
+                readings.append((call, v))
 
     def summary(self) -> dict:
         """Per key the count of readings and their median ms, and the

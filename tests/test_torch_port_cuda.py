@@ -566,3 +566,31 @@ def test_a_capture_holds_while_a_dead_task_awaits_the_collector(dev):
     assert task.serving.graphs == 1
     assert torch.equal(got, task.forward_decode(images))
     assert torch.equal(task.infer_decode(images), got)
+
+
+def test_a_split_call_serves_the_rows_of_its_pieces(dev):
+    """A host batch of 32 images is served in two pieces
+    (``tasks/base.py::serve_split``: 8 and 24), the rest's upload on the
+    pool's upload stream while the first piece runs. Over calls with other
+    batches, each overwritten on the host as soon as its call returns, the
+    rows are eager's of the two pieces; each piece has its own graph."""
+    import numpy as np
+
+    from centernet_tpu_torch.tasks.detection import CenterNetDetection
+
+    task = CenterNetDetection("res_18", dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(0, 256, (32, 128, 128, 3),
+                                             dtype=np.uint8))
+               for _ in range(3)]
+    host = torch.empty_like(batches[0])
+    for i in range(6):
+        want = batches[i % 3]
+        host.copy_(want)
+        got = task.infer_decode(host)
+        host.zero_()
+        eager = torch.cat([task.forward_decode(want[:8].to(dev)),
+                           task.forward_decode(want[8:].to(dev))])
+        assert torch.equal(got, eager), i
+    assert sorted(k[0][0][0][0] for k in task.serving.entries) == [8, 24]
+    assert task.serving.graphs == 2
