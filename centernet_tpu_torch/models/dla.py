@@ -15,9 +15,9 @@ import math
 from typing import List, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_act import bn_act
 from ..ops.dcn import DeformConvBNAct
 from ..ops.modules import BatchNorm2d, Conv2d
 from ..utils.profiling import span
@@ -40,9 +40,8 @@ class DlaBasicBlock(nn.Module):
     def forward(self, x, residual=None):
         if residual is None:
             residual = x
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(y + residual)
+        y = bn_act(self.conv1(x), self.bn1)
+        return bn_act(self.conv2(y), self.bn2, residual=residual)
 
 
 class Root(nn.Module):
@@ -57,10 +56,9 @@ class Root(nn.Module):
         self.residual = residual
 
     def forward(self, children: Sequence[torch.Tensor]):
-        x = self.bn(self.conv(torch.cat(list(children), dim=1)))
-        if self.residual:
-            x = x + children[0]
-        return F.relu(x)
+        x = self.conv(torch.cat(list(children), dim=1))
+        return bn_act(x, self.bn,
+                      residual=children[0] if self.residual else None)
 
 
 class Tree(nn.Module):
@@ -110,7 +108,8 @@ class Tree(nn.Module):
                   if self.stride > 1 else x)
         proj = bottom
         if self.project is not None and (residual is None or self.training):
-            proj = self.project(bottom)
+            conv, bn = self.project
+            proj = bn_act(conv(bottom), bn, relu=False)
         if residual is None:
             residual = proj
         if self.level_root:

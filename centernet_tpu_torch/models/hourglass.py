@@ -19,9 +19,9 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.bn_act import bn_act
 from ..ops.modules import BatchNorm2d, Conv2d
 from ..utils.profiling import span
 from .layers import upsample_nearest_2x
@@ -41,7 +41,7 @@ class HgConv(nn.Module):
         self.bn = BatchNorm2d(out_channels)
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        return bn_act(self.conv(x), self.bn)
 
 
 class HgResidual(nn.Module):
@@ -67,10 +67,11 @@ class HgResidual(nn.Module):
                 BatchNorm2d(out_channels))
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        skip = x if self.skip is None else self.skip(x)
-        return F.relu(y + skip)
+        y = bn_act(self.conv1(x), self.bn1)
+        if self.skip is None:
+            return bn_act(self.conv2(y), self.bn2, residual=x)
+        return bn_act(self.conv2(y), self.bn2, residual=self.skip[0](x),
+                      residual_bn=self.skip[1])
 
 
 def _residuals(dims: Sequence[int], stride: int = 1,
@@ -162,7 +163,8 @@ class HourglassNet(nn.Module):
                 outs.append(cnv)
                 if ind < self.num_stacks - 1:
                     with span(f"merge{ind}"):
-                        inter = F.relu(self.inters_[ind](inter)
-                                       + self.cnvs_[ind](cnv))
+                        a, b = self.inters_[ind], self.cnvs_[ind]
+                        inter = bn_act(a[0](inter), a[1], residual=b[0](cnv),
+                                       residual_bn=b[1])
                         inter = self.inters[ind](inter)
             return outs

@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.modules import BatchNorm2d, CastCache, Conv2d
+from ..ops.bn_act import bn_act
+from ..ops.modules import BatchNorm2d, CastCache, Conv2d, recording
 from ..ops import halo
 from ..ops.upsample import up_dw
 
@@ -47,7 +48,8 @@ def max_pool2d(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
 
 class ConvBNAct(nn.Sequential):
     """Conv2d + BatchNorm + optional ReLU; state_dict keys ``0.*`` (conv) and
-    ``1.*`` (BN), as the reference's conv levels."""
+    ``1.*`` (BN), as the reference's conv levels. Serving runs the BatchNorm
+    and the ReLU as one ``ops/bn_act.py`` pass."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, act: bool = True,
@@ -61,6 +63,11 @@ class ConvBNAct(nn.Sequential):
         if act:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
+
+    def forward(self, x):
+        if recording(self):
+            return super().forward(x)
+        return bn_act(self[0](x), self[1], relu=len(self) > 2)
 
 
 def bilinear_upsample_kernel(kernel_size: int) -> torch.Tensor:

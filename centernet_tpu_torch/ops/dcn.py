@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import dcn_cuda, halo
+from .bn_act import bn_act
 from .modules import BatchNorm2d, CastCache, Conv2d, recording
 
 CLIP_EPS = 1.0 / 64.0
@@ -304,7 +305,8 @@ class DCN(CastCache, nn.Module):
 
 class DeformConvBNAct(nn.Module):
     """DCN + BN + ReLU on the DCN's f32 output, returned in the compute
-    dtype (reference ``DeformConv``: ``conv`` and ``actf``)."""
+    dtype (reference ``DeformConv``: ``conv`` and ``actf``); serving runs
+    the BN, the ReLU and the cast as one ``ops/bn_act.py`` pass."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  dtype: torch.dtype = torch.float32):
@@ -315,4 +317,6 @@ class DeformConvBNAct(nn.Module):
         self.conv = DCN(in_channels, out_channels, dtype=dtype)
 
     def forward(self, x):
-        return self.actf(self.conv(x)).to(self.dtype)
+        if recording(self):
+            return self.actf(self.conv(x)).to(self.dtype)
+        return bn_act(self.conv(x), self.actf[0], out_dtype=self.dtype)

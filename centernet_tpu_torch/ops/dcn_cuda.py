@@ -5,7 +5,8 @@ build and launch counter of every hand-written kernel of the port.
 ``centernet_tpu/ops/dcn_pallas.py::_fwd_kernel`` and ``csrc/dcn_bwd.cu``
 replaces ``_bwd_kernel``; ``csrc/upsample_dw.cu`` holds the depthwise
 transposed convolution of DLA's up path (its wrappers are
-``ops/upsample.py``). At first use the sources are compiled with ``nvcc``
+``ops/upsample.py``) and ``csrc/bn_act.cu`` the serving blocks' BatchNorm
+epilogue (``ops/bn_act.py``). At first use the sources are compiled with ``nvcc``
 for ``sm_90a`` (one process per source, side by side) and linked into one
 shared library with a plain C interface, cached under
 ``centernet_tpu_torch/_build/`` by a hash of the sources and flags, and
@@ -18,7 +19,8 @@ memory); the wrappers hand its numbers to the C functions as ints, and the
 C side refuses a plan whose sizes it does not arrive at itself.
 
 ``launch_counts["dcn_fwd"]`` and ``launch_counts["dcn_bwd"]`` (and
-``"up_dw_fwd"``, ``"up_dw_bwd"``, counted by ``ops/upsample.py``) grow by
+``"up_dw_fwd"``, ``"up_dw_bwd"``, counted by ``ops/upsample.py``, and
+``"bn_act"``, counted by ``ops/bn_act.py``) grow by
 one at every call that launches the kernel and nowhere else, so a run can
 show that its path went through the kernels. While a CUDA graph is captured
 (``recording_launches``), a call records its kernel into the graph and
@@ -50,7 +52,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "dcn_fwd.cu", _PKG / "csrc" / "dcn_bwd.cu",
-           _PKG / "csrc" / "upsample_dw.cu")
+           _PKG / "csrc" / "upsample_dw.cu", _PKG / "csrc" / "bn_act.cu")
 HEADERS = (_PKG / "csrc" / "dcn_hopper.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -147,6 +149,9 @@ def _load():
             lib.up_dw_fwd.restype = ci
             lib.up_dw_bwd.argtypes = [vp] * 6 + [ci] * 10 + [vp]
             lib.up_dw_bwd.restype = ci
+            lib.bn_act.argtypes = ([vp] * 11 + [ctypes.c_float] * 2
+                                   + [ci] * 7 + [vp])
+            lib.bn_act.restype = ci
             lib.dcn_error_string.argtypes = [ci]
             lib.dcn_error_string.restype = ctypes.c_char_p
             _lib = lib

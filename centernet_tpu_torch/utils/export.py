@@ -6,8 +6,9 @@ and runs without the model's Python classes.
 Format: one file, an 8-byte magic ``b"CNPTEX01"`` and then the bytes of
 ``torch.export.save``. The JAX package's artifacts (magic ``CNTPUEX1``,
 StableHLO) are refused by name. The program holds the DCN layers as the
-operators ``centernet_tpu_torch::dcn_fwd`` (``ops/dcn_cuda.py``) and DLA's
-depthwise up convolutions as ``::up_dw_fwd`` (``ops/upsample.py``), so
+operators ``centernet_tpu_torch::dcn_fwd`` (``ops/dcn_cuda.py``), DLA's
+depthwise up convolutions as ``::up_dw_fwd`` (``ops/upsample.py``) and
+the blocks' BatchNorm epilogues as ``::bn_act`` (``ops/bn_act.py``), so
 ``load_serving`` imports those modules to register them: on the card a
 loaded program launches the hand-written kernels (and counts their
 launches), on the CPU the plain versions. On the card the loaded program
@@ -119,8 +120,9 @@ def load_serving(path: str, compiled: Optional[bool] = None) -> Callable:
     flattening and the input checks, which read shapes alone, runs at the
     warm-up and the capture, never at a replay. The weights are constants
     of the program, so nothing is refreshed before a replay."""
-    # (register the operators a program may hold: the DCN's, DLA's up's)
-    from ..ops import dcn_cuda, upsample  # noqa: F401
+    # (register the operators a program may hold: the DCN's, DLA's up's,
+    # the BatchNorm epilogue's)
+    from ..ops import bn_act, dcn_cuda, upsample  # noqa: F401
 
     with open(path, "rb") as f:
         magic = f.read(len(MAGIC))

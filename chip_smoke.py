@@ -10,9 +10,9 @@ It imports neither JAX nor the JAX package. Phases, in order; any failure
 raises and the script exits non-zero without printing a result:
 
 1. environment: torch, CUDA, nvcc and the card (name, power limit);
-2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``
-   and ``upsample_dw.cu`` from the checkout (one nvcc per source, side by
-   side);
+2. build: compiles ``centernet_tpu_torch/csrc/dcn_fwd.cu``, ``dcn_bwd.cu``,
+   ``upsample_dw.cu`` and ``bn_act.cu`` from the checkout (one nvcc per
+   source, side by side);
 3. kernel vs plain: the DCNv2 forward kernel against its plain PyTorch
    version at the 7 shapes of dla_34's 16 DCN layers at 512x512 (batch 4,
    as served), in bf16 and f32, with offsets across the clamp bounds and the
@@ -23,7 +23,14 @@ raises and the script exits non-zero without printing a result:
    B4 and B32, bf16 and f32 (y, dx, dW; the card tests' element rule,
    UP_ROUND and UP_SUM), and in bf16 their times, the bytes' bound and the
    library's time for the same layer (``F.conv_transpose2d(groups=C)`` and
-   its autograd backward, which the port never calls for it);
+   its autograd backward, which the port never calls for it); then bn_act
+   (``csrc/bn_act.cu``, the blocks' BatchNorm epilogue when serving)
+   against the plain version in float64 at every distinct call of dla_34's
+   and Hourglass-104's eval forwards at 512x512 (``bn_act_calls``), at B8
+   and B24 (split serving's pieces of a B32 request), with its time, the
+   bytes' bound and the time of the composition it replaces (PyTorch's
+   batch_norm, add, relu and cast, which the port no longer calls), per
+   shape and summed over a forward;
 4. serving slice: ``CenterNetDetection("dla_34", dtype=bfloat16)`` on the
    card serves 3 requests of 4 uint8 512x512 images through
    ``predict_batch``; the DCN launch count must grow by 16 per forward; one
@@ -193,11 +200,14 @@ raises and the script exits non-zero without printing a result:
    naming gloo, ``--num_devices 2`` and ``--spatial 2`` refused by name;
    each path's times eager against graphed in phase 14's columns.
 
-Every path counts its launches of the four hand-written kernels
-(``launch_counts``: dcn_fwd, dcn_bwd, up_dw_fwd, up_dw_bwd) from 0 and
-holds them to ``launches_of``: per dla_34 forward 16 dcn_fwd and 8
+Every path counts its launches of the five hand-written kernels
+(``launch_counts``: dcn_fwd, dcn_bwd, up_dw_fwd, up_dw_bwd, bn_act) from 0
+and holds them to ``launches_of``: per dla_34 forward 16 dcn_fwd and 8
 up_dw_fwd, per backward 16 dcn_bwd and 8 up_dw_bwd, graph replays
-included; resdcn 3 of each DCN kernel; no up_dw outside dla_34. Phase 9
+included; resdcn 3 of each DCN kernel; no up_dw outside dla_34; bn_act 53
+per dla_34 and 144 per Hourglass-104 eval forward, none in a train step or
+in res and resdcn, and on halo bands once per call whose band has rows
+(``bn_act_band_launches``). Phase 9
 also holds the up kernels at every up shape the TTA met, phase 12 runs
 ``opcheck`` of the up operators and counts 8 ``up_dw_fwd`` nodes in each
 exported program, and phase 13 requires every band's up call at pad_h 0
@@ -272,7 +282,20 @@ UP_LAYERS = sum(n for *_, n in DLA34_UP)
 # benchmark's B32, and times them at both.
 UP_BATCHES = (BATCH, 32)
 # The kernels whose launches the wrappers count (``dcn_cuda.launch_counts``).
-COUNTED = ("dcn_fwd", "dcn_bwd", "up_dw_fwd", "up_dw_bwd")
+COUNTED = ("dcn_fwd", "dcn_bwd", "up_dw_fwd", "up_dw_bwd", "bn_act")
+# bn_act launches per eval forward (``ops/bn_act.py``, the blocks' BatchNorm
+# epilogue when serving): dla_34's 24 in basic blocks, 6 roots, 3 ConvBNActs,
+# 16 DCN outputs and the 4 projections that run in eval; Hourglass-104's 70
+# residuals x 2, 3 HgConvs and the merge. A train-mode forward launches none.
+BN_ACT_PER_FORWARD = {"dla_34": 53, "hourglass": 144}
+# bn_act against its plain version in float64, element by element, as
+# tests/test_torch_port_bn_act.py holds it: |got - exact| <= UP_ROUND[dtype]
+# * |exact| + BN_ACT_SUM * scale, scale the sum of the terms' magnitudes
+# (one rounding to the output type; the f32 arithmetic's own error).
+BN_ACT_SUM = 1e-6
+# Phase 3 holds and times bn_act at every call of dla_34 and Hourglass-104
+# at 512x512 at split serving's two pieces of a B32 request.
+BN_ACT_BATCHES = (8, 24)
 # Up kernels vs the plain version in float64 on the same inputs, element by
 # element, as tests/test_torch_port_upsample_cuda.py holds them: |got -
 # exact| <= UP_ROUND * |exact| + UP_SUM * scale, scale the same sums over
@@ -337,6 +360,7 @@ KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_fwd.cu"
 BWD_KERNEL_TPU = "centernet_tpu/ops/dcn_pallas.py:414"
 BWD_KERNEL_SRC = "centernet_tpu_torch/csrc/dcn_bwd.cu"
 UP_KERNEL_SRC = "centernet_tpu_torch/csrc/upsample_dw.cu"
+BN_ACT_SRC = "centernet_tpu_torch/csrc/bn_act.cu"
 DEVICE = "cuda"
 WATCHDOG_S = 1100
 
@@ -698,16 +722,21 @@ def check_backward_kernel(dev, shapes=None):
 
 
 def launches_of(arch, forwards, steps):
-    """The counted kernels' launches of ``forwards`` forwards and ``steps``
-    backward passes of ``arch``: each DCN layer launches dcn_fwd once a
-    forward and dcn_bwd once a backward (16 layers in dla_34, 3 in resdcn),
-    each of dla_34's eight depthwise up layers up_dw_fwd and up_dw_bwd
-    likewise; the res, resdcn and hourglass heads' full deconvolutions
-    (``ConvTranspose2x``) launch neither."""
+    """The counted kernels' launches (in COUNTED's order) of ``forwards``
+    forwards and ``steps`` backward passes of ``arch``, each train step one
+    of the forwards: each DCN layer launches dcn_fwd once a forward and
+    dcn_bwd once a backward (16 layers in dla_34, 3 in resdcn), each of
+    dla_34's eight depthwise up layers up_dw_fwd and up_dw_bwd likewise; the
+    res, resdcn and hourglass heads' full deconvolutions
+    (``ConvTranspose2x``) launch neither; the ``forwards - steps`` eval
+    forwards launch bn_act ``BN_ACT_PER_FORWARD`` times each (none in res
+    and resdcn, whose blocks keep PyTorch's BatchNorm)."""
     dcn = 16 if arch == "dla_34" else n_dcn_layers(arch)
     up = UP_LAYERS if arch == "dla_34" else 0
+    bn = BN_ACT_PER_FORWARD.get(arch, 0)
     return {"dcn_fwd": dcn * forwards, "dcn_bwd": dcn * steps,
-            "up_dw_fwd": up * forwards, "up_dw_bwd": up * steps}
+            "up_dw_fwd": up * forwards, "up_dw_bwd": up * steps,
+            "bn_act": bn * (forwards - steps)}
 
 
 def launch_record():
@@ -775,7 +804,7 @@ def check_up_kernels(dev, shapes, timed):
             torch.cuda.synchronize()
             grew = {k: v - before[k] for k, v in launch_record().items()}
             if grew != {"dcn_fwd": 0, "dcn_bwd": 0, "up_dw_fwd": 1,
-                        "up_dw_bwd": 1}:
+                        "up_dw_bwd": 1, "bn_act": 0}:
                 raise RuntimeError(f"up_dw launches counted {grew}")
             xd, wd, gd = x.double(), wt.double(), g.double()
             exact = (up_dw_reference(xd, wd, *geo),
@@ -843,6 +872,154 @@ def check_up_kernels(dev, shapes, timed):
             del x, wt, y, g, dx, dw, exact, scale
     del l2_flush
     torch.cuda.empty_cache()
+    return rows
+
+
+def bn_act_calls(arch, hw=(HW, HW)):
+    """Every bn_act call of one eval forward of ``arch`` (bf16, B1) at
+    ``hw``, in order, from the model on the meta device: (H, W, C, x's
+    dtype, residual "none" / "plain" / "bn", ReLU, output dtype)."""
+    from centernet_tpu_torch.models import create_model
+    from centernet_tpu_torch.ops import bn_act as bn_mod
+
+    key = (arch, tuple(hw))
+    if key not in _BN_ACT_CALLS:
+        calls = []
+
+        def spy(x, bn, eps, r, r_bn, r_eps, relu, out_dtype):
+            mode = "none" if r is None else ("bn" if r_bn else "plain")
+            calls.append((*x.shape[1:], x.dtype, mode, relu, out_dtype))
+            return x.new_empty(x.shape, dtype=out_dtype)
+
+        real, bn_mod.bn_act_op = bn_mod.bn_act_op, spy
+        try:
+            with torch.device("meta"), torch.no_grad():
+                model = create_model(arch, torch.bfloat16).eval()
+                model(torch.empty(1, 3, *hw).contiguous(
+                    memory_format=torch.channels_last))
+        finally:
+            bn_mod.bn_act_op = real
+        _BN_ACT_CALLS[key] = calls
+    return _BN_ACT_CALLS[key]
+
+
+_BN_ACT_CALLS: dict = {}
+
+
+def bn_act_band_launches(arch, hw, n_model, m):
+    """bn_act launches of rank ``m`` of a ``(1, n_model)`` mesh in one
+    spatial forward of ``arch`` at ``hw``: a call on a band without rows
+    (``ops/halo.py::band``) launches nothing."""
+    from centernet_tpu_torch.ops.halo import band
+
+    return sum(1 for h, *_ in bn_act_calls(arch, hw)
+               if band(h, n_model, m)[1] > band(h, n_model, m)[0])
+
+
+def check_bn_act(dev):
+    """Phase 3: bn_act against its plain version in float64 at every
+    distinct call of dla_34 and Hourglass-104 at 512x512, at BN_ACT_BATCHES
+    (|got - exact| <= UP_ROUND * |exact| + BN_ACT_SUM * scale), one launch
+    counted each; its time (cold L2, with the lead), its bound (x, r and
+    out once over HBM) and the composition it replaces on the card
+    (``bn_act_reference``: PyTorch's batch_norm, add, relu and cast, which
+    the port no longer calls), with its kernels' names. Returns the rows."""
+    from centernet_tpu_torch.ops.bn_act import bn_act_cuda, bn_act_reference
+
+    for arch in BN_ACT_PER_FORWARD:
+        if len(bn_act_calls(arch)) != BN_ACT_PER_FORWARD[arch]:
+            raise RuntimeError(f"{arch}: {len(bn_act_calls(arch))} bn_act "
+                               f"calls a forward, want "
+                               f"{BN_ACT_PER_FORWARD[arch]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    eps = 1e-5
+    rows = []
+    for arch in BN_ACT_PER_FORWARD:
+        shapes = collections.Counter(bn_act_calls(arch))
+        for b in BN_ACT_BATCHES:
+            for (h, w, c, xd, mode, relu, od), layers in sorted(
+                    shapes.items(), key=lambda kv: str(kv[0])):
+                def vectors():
+                    return [torch.rand(c, generator=gen, device=dev) + 0.5,
+                            torch.randn(c, generator=gen, device=dev) * 0.2,
+                            torch.randn(c, generator=gen, device=dev) * 0.5,
+                            torch.rand(c, generator=gen, device=dev) * 1.8
+                            + 0.2]
+
+                x = torch.randn(b, h, w, c, generator=gen, device=dev).to(xd)
+                bn = vectors()
+                r = (None if mode == "none" else torch.randn(
+                    b, h, w, c, generator=gen, device=dev).to(od))
+                r_bn = vectors() if mode == "bn" else []
+                args = (x, bn, eps, r, r_bn, eps, relu, od)
+                before = launch_record()
+                y = bn_act_cuda(*args)
+                torch.cuda.synchronize()
+                grew = {k: v - before[k] for k, v in launch_record().items()}
+                if grew != {**{k: 0 for k in COUNTED}, "bn_act": 1}:
+                    raise RuntimeError(f"bn_act launches counted {grew}")
+                exact = bn_act_reference(
+                    x.double(), [v.double() for v in bn], eps,
+                    None if r is None else r.double(),
+                    [v.double() for v in r_bn], eps, relu, torch.float64)
+
+                def terms(t, p):
+                    wt, bb, mean, var = (v.double() for v in p)
+                    sc = wt / torch.sqrt(var + eps)
+                    return t.double().abs() * sc.abs() + bb.abs() + (
+                        mean * sc).abs()
+
+                scale = terms(x, bn)
+                if r is not None:
+                    scale = scale + (terms(r, r_bn) if r_bn
+                                     else r.double().abs())
+                del terms
+                if y.dtype != od or not bool(torch.isfinite(y).all()):
+                    raise RuntimeError(f"bn_act: {y.dtype} output, finite "
+                                       f"{bool(torch.isfinite(y).all())}")
+                err = (y.double() - exact).abs()
+                excess = float((err - UP_ROUND[od] * exact.abs()
+                                - BN_ACT_SUM * scale).max())
+                nbytes = x.numel() * x.element_size() + y.numel() * (
+                    y.element_size() * (1 if r is None else 2))
+                bound = 1e3 * nbytes / HBM_BYTES_PER_S
+                row = {"arch": arch,
+                       "shape": f"B{b} {h}x{w} C{c} {str(xd)[6:]}->"
+                                f"{str(od)[6:]} r={mode} relu={int(relu)}",
+                       "layers": layers, "max_abs_err": float(err.max()),
+                       "excess": excess, "bytes": nbytes,
+                       "ms": cuda_ms(lambda: bn_act_cuda(*args), 20,
+                                     l2_flush.zero_, LEAD_CYCLES),
+                       "bound_ms": bound,
+                       "library_ms": cuda_ms(lambda: bn_act_reference(*args),
+                                             20, l2_flush.zero_,
+                                             LEAD_CYCLES)}
+                _, names = checked_by_name(kernel_times(
+                    lambda: bn_act_cuda(*args), 5, l2_flush.zero_), row["ms"])
+                _, lib_names = checked_by_name(kernel_times(
+                    lambda: bn_act_reference(*args), 5, l2_flush.zero_),
+                    row["library_ms"])
+                rows.append(row)
+                print(f"bn_act {arch} {row['shape']:>44} x{layers}: excess "
+                      f"{excess:.1e}, {row['ms']:.4f} ms (bound {bound:.4f}, "
+                      f"{100 * bound / row['ms']:.1f}% of HBM; composition "
+                      f"{row['library_ms']:.4f}); by kernel: {names}; "
+                      f"composition {lib_names}", flush=True)
+                if excess > 0:
+                    raise RuntimeError(f"bn_act disagrees with the plain "
+                                       f"version at {arch} {row['shape']}")
+                del x, r, y, exact, scale, err, args
+    del l2_flush
+    torch.cuda.empty_cache()
+    for arch in BN_ACT_PER_FORWARD:
+        for b in BN_ACT_BATCHES:
+            at = [r for r in rows if r["arch"] == arch
+                  and r["shape"].startswith(f"B{b} ")]
+            print(f"bn_act {arch} B{b}, the {sum(r['layers'] for r in at)} "
+                  f"calls of a forward summed: " + ", ".join(
+                      f"{k} {sum(r[k] * r['layers'] for r in at):.4f}"
+                      for k in ("ms", "bound_ms", "library_ms")), flush=True)
     return rows
 
 
@@ -2716,9 +2893,9 @@ for i in range(1, len(sys.argv), 3):
 
 
 def check_ops_on_card(dev):
-    """12(a): ``torch.library.opcheck`` of the DCN operators and the up
-    operators on the card."""
-    from centernet_tpu_torch.ops import dcn_cuda, upsample
+    """12(a): ``torch.library.opcheck`` of the DCN operators, the up
+    operators and bn_act on the card."""
+    from centernet_tpu_torch.ops import bn_act, dcn_cuda, upsample
 
     b, hw, ci, co = OPCHECK_SHAPE
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2755,6 +2932,23 @@ def check_ops_on_card(dev):
                   f"{', '.join(sorted(res))} passed")
     print(f"at B{b} {n}x{n} C{c} stride {s} bf16, "
           f"{time.perf_counter() - t0:.1f} s")
+    # bn_act as a basic block's second call (bf16, the residual through its
+    # BatchNorm) and a DCN output's (f32 in, bf16 out)
+    t0 = time.perf_counter()
+    c = 64
+    x = torch.randn(b, n, n, c, generator=gen, device=dev)
+    vecs = [torch.rand(c, generator=gen, device=dev) + 0.5 for _ in range(8)]
+    for args in ((x.bfloat16(), vecs[:4], 1e-5, x.flip(0).bfloat16(),
+                  vecs[4:], 1e-5, True, torch.bfloat16),
+                 (x, vecs[:4], 1e-5, None, [], 0.0, True, torch.bfloat16)):
+        res = torch.library.opcheck(bn_act.bn_act_op, args,
+                                    rtol=OPCHECK_RTOL, atol=OPCHECK_ATOL)
+        bad = {k: v for k, v in res.items() if v != "SUCCESS"}
+        if bad:
+            raise RuntimeError(f"opcheck of bn_act: {bad}")
+        print(f"opcheck bn_act ({str(args[0].dtype)[6:]} in): "
+              f"{', '.join(sorted(res))} passed")
+    print(f"at B{b} {n}x{n} C{c}, {time.perf_counter() - t0:.1f} s")
 
 
 def sorted_rows(rows):
@@ -2771,8 +2965,8 @@ def sorted_rows(rows):
 def export_live(dev, kind, workdir):
     """12(b), in this process, for ``kind`` ("detection" or "multi_pose"):
     dla_34 at 512x512, bf16, B4, phase 4's seeded weights, exported and
-    saved (16 dcn_fwd and 8 up_dw_fwd nodes, the weights as bf16
-    constants, no traced
+    saved (16 dcn_fwd, 8 up_dw_fwd and 53 bn_act nodes, the weights as
+    bf16 constants, no traced
     tensor left in the cast caches); the live
     ``infer_decode``'s rows and batch times on the same inputs."""
     from centernet_tpu_torch.tasks.detection import CenterNetDetection
@@ -2795,12 +2989,17 @@ def export_live(dev, kind, workdir):
                 if n.target is ops.dcn_fwd.default)
     up_nodes = sum(1 for n in program.graph.nodes
                    if n.target is ops.up_dw_fwd.default)
+    bn_nodes = sum(1 for n in program.graph.nodes
+                   if n.target is ops.bn_act.default)
     size_mb = os.path.getsize(path) / 2 ** 20
     print(f"{kind}: exported in {export_s:.1f} s, {size_mb:.1f} MiB, "
-          f"{nodes} dcn_fwd and {up_nodes} up_dw_fwd nodes in the graph")
-    if (nodes, up_nodes) != (16, UP_LAYERS):
-        raise RuntimeError(f"the exported graph holds {nodes} dcn_fwd and "
-                           f"{up_nodes} up_dw_fwd nodes")
+          f"{nodes} dcn_fwd, {up_nodes} up_dw_fwd and {bn_nodes} bn_act "
+          f"nodes in the graph")
+    if (nodes, up_nodes, bn_nodes) != (16, UP_LAYERS,
+                                       BN_ACT_PER_FORWARD["dla_34"]):
+        raise RuntimeError(f"the exported graph holds {nodes} dcn_fwd, "
+                           f"{up_nodes} up_dw_fwd and {bn_nodes} bn_act "
+                           f"nodes")
     traced = [type(hit[1]).__name__ for m in task.model.modules()
               for hit in m.__dict__.get("_cast_cache", {}).values()
               if type(hit[1]) is not torch.Tensor]
@@ -3634,8 +3833,11 @@ def run_spatial(dev, card):
                                f"against {one.shape}")
         box, score, counts = row_errors(rows, one, box_tol, score_tol)
         plan = dcn_slab_plan(arch, hw, getattr(torch, dtype), n_model, rank)
-        # the up layers: each once a forward, on the band with pad_h 0
+        # the up layers: each once a forward, on the band with pad_h 0;
+        # bn_act once a call whose band has rows
         want = {**launches_of(arch, 1, 0), "dcn_fwd": sum(plan.values())}
+        if arch in BN_ACT_PER_FORWARD:
+            want["bn_act"] = bn_act_band_launches(arch, hw, n_model, rank)
         joint = " and joint" if kind == "multi_pose" else ""
         peaks = int((one[..., 4] >= PEAK_SCORE).sum())
         print(f"{name} rank {rank} ({source}: {peaks} rows scoring >= "
@@ -4839,10 +5041,12 @@ def main() -> int:
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
 
     phase("3 kernel vs plain (dla_34 DCN shapes at 512x512, batch 4; the "
-          "up kernels at batch 4 and 32)")
+          "up kernels at batch 4 and 32; bn_act at dla_34's and "
+          "Hourglass-104's calls, batch 8 and 24)")
     rows = check_kernel(dev)
     up_rows = check_up_kernels(
         dev, [s for b in UP_BATCHES for s in dla34_up_shapes(b)], True)
+    bn_rows = check_bn_act(dev)
 
     phase("4 serving slice: dla_34 detection serving, 512x512, bf16")
     task = CenterNetDetection("dla_34", dtype=torch.bfloat16, device=dev,
@@ -5175,6 +5379,22 @@ def main() -> int:
         }
 
     kernels += [up_summary("up_dw_fwd", "fwd"), up_summary("up_dw_bwd", "bwd")]
+
+    def bn_total(arch, b, key):
+        return sum(r[key] * r["layers"] for r in bn_rows if r["arch"] == arch
+                   and r["shape"].startswith(f"B{b} "))
+
+    kernels.append({
+        "name": "bn_act", "route": "cuda", "source": BN_ACT_SRC,
+        "replaces": None, "launches": launches["bn_act"],
+        "launches_by_path": by_path("bn_act"),
+        "max_abs_err": max(r["max_abs_err"] for r in bn_rows),
+        # per B32 request (its B8 and B24 pieces) of each model, every call
+        # of the forward summed; library_ms: the composition it replaces
+        **{arch: {key: sum(bn_total(arch, b, key) for b in BN_ACT_BATCHES)
+                  for key in ("ms", "bound_ms", "library_ms")}
+           for arch in BN_ACT_PER_FORWARD},
+        "bound_by": "bytes", "per_shape": bn_rows})
     print(json.dumps({"train": {
         "losses": losses, "grad_check": grad_check,
         "img_s": {b: 1e3 * b / t["ms"] for b, t in train_timing.items()}}}))
